@@ -1,0 +1,94 @@
+"""Build the hand-written kernels from csrc/ into shared libraries.
+
+The CUDA library is compiled by nvcc for sm_90a (Hopper) into a plain-C
+shared library that ops/cuda_dsge.py loads with ctypes; no PyTorch headers
+are involved, so a build takes seconds. It happens at first use, into
+smc_tpu_torch/_build/, under a name keyed by a hash of the sources and flags
+(an edit rebuilds). Each build writes a temporary file and renames it into
+place, so concurrent builds cannot leave a partial library behind. The
+compiler's output (for nvcc, ptxas registers and spills) is kept beside the
+library as <library>.log.
+
+`build_cpu_library` compiles csrc/dsge_cpu.cpp, the same per-particle bodies
+as plain host loops, with g++. Only the tests use it.
+
+A missing compiler or a failed build raises RuntimeError with the
+compiler's output; nothing here returns None.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
+
+
+def _key(source: Path, flags) -> str:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.iterdir()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join([source.name, *flags]).encode())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    """nvcc from $CUDA_HOME/bin, then /usr/local/cuda/bin, then PATH."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    cands.append(Path(DEFAULT_CUDA_HOME) / "bin" / "nvcc")
+    for c in cands:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError("nvcc not found in $CUDA_HOME/bin, /usr/local/cuda/bin "
+                       "or PATH: the CUDA kernels cannot be built")
+
+
+def _compile(compiler, flags, source: Path, stem: str) -> Path:
+    key = _key(source, flags)
+    out = BUILD_DIR / f"{stem}_{key}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
+    cmd = [compiler, *flags, "-I", str(CSRC), "-o", str(tmp), str(source)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot run {compiler}: {e}") from e
+    if proc.returncode != 0 or not tmp.exists():
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"build of {source.name} failed "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def build_cuda_library() -> Path:
+    """Path of the sm_90a kernel library, built if missing."""
+    return _compile(find_nvcc(), NVCC_FLAGS, CSRC / "dsge_kernels.cu",
+                    "libsmc_dsge_cuda")
+
+
+def build_cpu_library() -> Path:
+    """Path of the host build of the kernel bodies (tests only)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host build of the kernel "
+                           "bodies cannot be made")
+    return _compile(gxx, GXX_FLAGS, CSRC / "dsge_cpu.cpp", "libsmc_dsge_cpu")

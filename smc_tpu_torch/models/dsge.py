@@ -1,0 +1,193 @@
+"""Linear DSGE family: RE solve by cyclic reduction + Chandrasekhar Kalman
+likelihood (port of smc_tpu/models/dsge.py, batch-last path).
+
+The system  A x_{t-1} + B x_t + C E_t[x_{t+1}] + D eps_t = 0  is solved for
+x_t = X x_{t-1} + M eps_t with X solving A + B X + C X^2 = 0 by cyclic
+reduction (Bini & Meini); the draw is accepted if the residual is small and
+the spectral-radius bounds of X and of -(B + C X)^{-1} C are below 1. The
+likelihood is the Morf-Sidhu-Kailath Chandrasekhar recursion started from
+the stationary covariance (Lyapunov doubling). Rejected draws give -inf.
+
+The `bl_*` functions here are the plain PyTorch versions: batch-last
+[r, c, N] tensors, fixed iteration counts. They are what a CPU tensor runs
+and what the CUDA kernels (ops/cuda_dsge.py) are held against.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List
+
+import numpy as np
+import torch
+
+from smc_tpu_torch.ops.linalg import (bl_matmul, bl_transpose, bl_gj_solve,
+                                      bl_psd_cofactor_solve3)
+
+_LOG_2PI = 1.8378770664093453
+
+
+def _bl_matvec(A, x):
+    """[i,j,N] @ [j,N] -> [i,N]."""
+    return torch.einsum("ijn,jn->in", A, x)
+
+
+def _bl_sym(A):
+    return 0.5 * (A + bl_transpose(A))
+
+
+def _max_abs(A):
+    """max |entry| per particle of [r, c, N] -> [N] (nan propagates)."""
+    return torch.amax(A.abs(), dim=(0, 1))
+
+
+def bl_spectral_radius_bound(M: torch.Tensor, n_squarings: int = 12):
+    """rho(M) upper bound ||M^(2^k)||_F^(1/2^k) by renormalized repeated
+    squaring: M [n,n,N] -> [N]."""
+    log_scale = torch.zeros(M.shape[-1], dtype=M.dtype, device=M.device)
+    for _ in range(n_squarings):
+        nrm = torch.sqrt(torch.sum(M * M, dim=(0, 1))) + 1e-300
+        M = M / nrm
+        M = bl_matmul(M, M)
+        log_scale = 2.0 * (log_scale + torch.log(nrm))
+    nrm_last = torch.sqrt(torch.sum(M * M, dim=(0, 1))) + 1e-300
+    total = log_scale + torch.log(nrm_last)
+    return torch.exp(total / (2.0 ** n_squarings))
+
+
+def bl_solve_linear_re(A, B, C, D, n_iter: int = 16, tol: float = 1e-8):
+    """Cyclic reduction: A/B/C [n,n,N], D [n,k,N] ->
+    (X [n,n,N], M [n,k,N], ok bool [N]); X and M are zero where not ok."""
+    n = A.shape[0]
+    A0, A1, A2, Ah = A, B, C, B
+    for _ in range(n_iter):
+        SA = bl_gj_solve(A1, torch.cat([A0, A2], dim=1))
+        SA0, SA2 = SA[:, :n], SA[:, n:]
+        A2SA0 = bl_matmul(A2, SA0)
+        Ah = Ah - A2SA0
+        A1 = A1 - bl_matmul(A0, SA2) - A2SA0
+        A0, A2 = -bl_matmul(A0, SA0), -bl_matmul(A2, SA2)
+    X = -bl_gj_solve(Ah, A)
+    lhs = B + bl_matmul(C, X)
+    M = -bl_gj_solve(lhs, D)
+
+    resid = A + bl_matmul(B, X) + bl_matmul(C, bl_matmul(X, X))
+    scale = torch.clamp(_max_abs(A), min=1.0)
+    converged = _max_abs(resid) < tol * scale
+    stable = bl_spectral_radius_bound(X) < 1.0
+    F = -bl_gj_solve(lhs, C)
+    unique = bl_spectral_radius_bound(F) < 1.0
+    finite = (torch.isfinite(X).all(dim=0).all(dim=0)
+              & torch.isfinite(M).all(dim=0).all(dim=0))
+    ok = converged & stable & unique & finite
+    X = torch.where(ok, X, 0.0)
+    M = torch.where(ok, M, 0.0)
+    return X, M, ok
+
+
+def bl_lyapunov_doubling(T, Q, n_iter: int = 30):
+    """P = T P T' + Q by doubling, all [n,n,N]."""
+    Ak, Pk = T, Q
+    for _ in range(n_iter):
+        Ak, Pk = (bl_matmul(Ak, Ak),
+                  Pk + bl_matmul(Ak, bl_matmul(Pk, bl_transpose(Ak))))
+    return Pk
+
+
+def bl_kalman_loglike_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H, data):
+    """Chandrasekhar Kalman log-likelihood: system matrices [.,.,N],
+    d_obs [n_o,N], data [n_o,T] shared -> loglh [N] (n_o == 3: the
+    innovation solves are the 3x3 cofactor form). Divergence guards: quad < 0,
+    diag(F) <= 0, or trace(F) growing past trace(F1) mark the draw -inf."""
+    n_s, n_o = T_mat.shape[0], Z.shape[0]
+    if n_o != 3:
+        raise ValueError("the Chandrasekhar likelihood needs n_obs == 3")
+    nb = T_mat.shape[-1]
+    RQR = bl_matmul(R_mat, bl_matmul(Q, bl_transpose(R_mat)))
+    P0 = bl_lyapunov_doubling(T_mat, RQR)
+
+    F = _bl_sym(bl_matmul(Z, bl_matmul(P0, bl_transpose(Z))) + H)
+    K = bl_matmul(T_mat, bl_matmul(P0, bl_transpose(Z)))
+    eye = torch.eye(n_o, dtype=F.dtype, device=F.device)[:, :, None]
+    M1_neg, _ = bl_psd_cofactor_solve3(F, eye.expand(n_o, n_o, nb))
+    M = _bl_sym(-M1_neg)
+    W = K
+    s = torch.zeros((n_s, nb), dtype=F.dtype, device=F.device)
+    tr_cap = torch.diagonal(F).sum(-1) * (1.0 + 1e-6) + 1e-12
+    bad = torch.zeros(nb, dtype=torch.bool, device=F.device)
+    total = torch.zeros(nb, dtype=F.dtype, device=F.device)
+
+    ys = torch.as_tensor(data, dtype=F.dtype, device=F.device)
+    for t in range(ys.shape[1]):
+        v = ys[:, t, None] - d_obs - _bl_matvec(Z, s)
+        ZW = bl_matmul(Z, W)
+        sol, logdet = bl_psd_cofactor_solve3(F, torch.cat([v[:, None], ZW], 1))
+        Finv_v, Finv_ZW = sol[:, 0], sol[:, 1:]
+        quad = torch.sum(v * Finv_v, dim=0)
+        total = total - 0.5 * (n_o * _LOG_2PI + logdet + quad)
+        s = _bl_matvec(T_mat, s) + _bl_matvec(K, Finv_v)
+
+        MWtZt = bl_matmul(M, bl_transpose(ZW))
+        WMWtZt = bl_matmul(W, MWtZt)
+        F_new = _bl_sym(F + bl_matmul(Z, WMWtZt))
+        K_new = K + bl_matmul(T_mat, WMWtZt)
+        W = bl_matmul(T_mat, W) - bl_matmul(K, Finv_ZW)
+        Fnew_inv_ZW, _ = bl_psd_cofactor_solve3(F_new, ZW)
+        M = _bl_sym(M - bl_matmul(MWtZt, bl_matmul(Fnew_inv_ZW, M)))
+        diag_F = torch.diagonal(F_new)                       # [N, n_o]
+        bad = (bad | (quad < 0.0) | (diag_F <= 0.0).any(dim=1)
+               | (diag_F.sum(-1) > tr_cap))
+        F, K = F_new, K_new
+    return torch.where(torch.isfinite(total) & ~bad, total, float("-inf"))
+
+
+def bl_dsge_loglike(A, B, C, D, Q, Z, d_obs, H, data):
+    """Plain composition: RE solve then Kalman; rejected draws -> -inf."""
+    X, M, ok = bl_solve_linear_re(A, B, C, D)
+    ll = bl_kalman_loglike_chandrasekhar(X, M, Q, Z, d_obs, H, data)
+    return torch.where(ok, ll, float("-inf"))
+
+
+class LinearDSGE:
+    """A linear-RE DSGE given by batched maps from thetas [N, P]:
+    system_fn -> (A, B, C, D), measurement_fn -> (d [n_o,N], Z, H),
+    shock_cov_fn -> Q, every matrix batch-last [r, c, N] and contiguous.
+
+    likelihood_backend "kernel" (default) goes through ops/cuda_dsge.py:
+    the hand-written CUDA kernels for CUDA tensors, their plain versions for
+    CPU tensors. "plain" always runs the bl_* functions above."""
+
+    def __init__(self, parameters: List, system_fn: Callable,
+                 measurement_fn: Callable, n_shocks: int,
+                 shock_cov_fn: Callable, likelihood_backend: str = "kernel"):
+        if likelihood_backend not in ("kernel", "plain"):
+            raise ValueError("likelihood_backend must be 'kernel' or 'plain'")
+        self.parameters = parameters
+        self.system_fn = system_fn
+        self.measurement_fn = measurement_fn
+        self.shock_cov_fn = shock_cov_fn
+        self.n_shocks = n_shocks
+        self.likelihood_backend = likelihood_backend
+        self._data = (None, None)
+
+    def _data_on(self, data, device) -> torch.Tensor:
+        """The observations [n_o, T] as a contiguous f64 tensor on `device`;
+        the copy of the last array seen is kept, so a run copies its data
+        to the device once, not once per likelihood call."""
+        src, t = self._data
+        if src is not data or t.device != device:
+            t = torch.as_tensor(np.asarray(data, np.float64),
+                                device=device).contiguous()
+            self._data = (data, t)
+        return t
+
+    def loglike_batched(self, thetas: torch.Tensor, data) -> torch.Tensor:
+        """Whole-cloud likelihood thetas [N, P] -> loglh [N]."""
+        thetas = thetas.to(torch.float64)
+        A, B, C, D = self.system_fn(thetas)
+        Q = self.shock_cov_fn(thetas)
+        d_obs, Z, H = self.measurement_fn(thetas)
+        y = self._data_on(data, thetas.device)
+        if self.likelihood_backend == "plain":
+            return bl_dsge_loglike(A, B, C, D, Q, Z, d_obs, H, y)
+        from smc_tpu_torch.ops.cuda_dsge import dsge_loglike
+        return dsge_loglike(A, B, C, D, Q, Z, d_obs, H, y)

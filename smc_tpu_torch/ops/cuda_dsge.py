@@ -1,0 +1,172 @@
+"""Hand-written CUDA kernels for the DSGE likelihood, and their dispatch.
+
+Replaces smc_tpu/ops/pallas_dsge.py: `solve_linear_re` stands where
+`pallas_solve_linear_re` (kernel `_re_kernel`) stood, `kalman_chandrasekhar`
+where `pallas_kalman_chandrasekhar` (kernel `_kalman_kernel`) stood, and
+`dsge_loglike` composes the two as `pallas_dsge_loglike` did.
+
+Dispatch: a CPU tensor runs the plain PyTorch version (models/dsge.py
+`bl_*`); a CUDA tensor launches the kernel, or raises. There is no fallback.
+`LAUNCHES` counts kernel launches, one per call that reaches the GPU.
+
+The kernels (csrc/dsge_kernels.cu, bodies in csrc/dsge_particle.cuh) run one
+thread per particle in native f64. What bounds them on the card is neither
+memory nor arithmetic at the AS size: the RE solve moves ~2.4 KB per
+particle and does ~6e4 f64 operations (up to 16 cyclic-reduction
+iterations, each a 6x18 Gauss-Jordan solve and four 6x6 products, then two
+12-squaring spectral bounds), the Kalman filter ~80 steps of 3x3 and 6x3
+products; at 16,384 particles that is tens of microseconds of either. They
+are bound by latency: 128-thread blocks give one block of 4 warps per SM,
+and the RE carry (4x36 doubles plus the solve's workspace) exceeds the 255
+registers a thread may hold, so it spills to local memory (cached in L1).
+The design answers with the simplest thing that is right: sizes are
+template parameters so all loops unroll, the pivot swap is written as
+selects so the arrays are never indexed dynamically, each particle exits
+its iteration on its own convergence test (no warp- or tile-wide exit, so a
+NaN particle cannot change a neighbour), the shared observations are staged
+once per block in shared memory, and the Kalman kernel skips particles
+whose RE solve failed. Making them fast is later work (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from smc_tpu_torch.models.dsge import (bl_solve_linear_re,
+                                       bl_kalman_loglike_chandrasekhar)
+
+LAUNCHES = {"re": 0, "kalman": 0}
+
+# (n_state, n_shock) pairs the kernels are instantiated for: An-Schorfheide
+# and the 3-state test system
+SIZES = ((6, 3), (3, 3))
+N_OBS = 3
+_MAX_SMEM = 48 * 1024
+
+_lib = None
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from smc_tpu_torch import _build
+        lib = ctypes.CDLL(str(_build.build_cuda_library()))
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.smc_re_solve.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
+                                     ctypes.c_double, P]
+        lib.smc_re_solve.restype = I
+        lib.smc_kalman.argtypes = [I, I, P, P, P, P, P, P, P, I, P, L, I, P,
+                                   P]
+        lib.smc_kalman.restype = I
+        _lib = lib
+    return _lib
+
+
+def _check(name, t, shape, device, dtype=torch.float64):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _cuda_device(t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {t.device}")
+    return t.device
+
+
+def _sizes(n_s, n_k):
+    if (n_s, n_k) not in SIZES:
+        raise ValueError(f"no kernel instantiated for n_state={n_s}, "
+                         f"n_shock={n_k}; have {SIZES}")
+
+
+def _raise_on(rc, what):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed (CUDA error {rc})")
+
+
+def solve_linear_re(A, B, C, D, n_iter: int = 16, tol: float = 1e-8):
+    """A/B/C [n,n,N], D [n,k,N] f64 -> (X [n,n,N], M [n,k,N], ok bool [N]).
+    The kernel exits cyclic reduction per particle at convergence; the plain
+    version runs all n_iter iterations (they agree to f64 rounding, since
+    the iteration is quadratic)."""
+    if A.device.type == "cpu":
+        return bl_solve_linear_re(A, B, C, D, n_iter=n_iter, tol=tol)
+    dev = _cuda_device(A)
+    n_s, n_k, n = A.shape[0], D.shape[1], A.shape[-1]
+    _sizes(n_s, n_k)
+    for name, t in (("A", A), ("B", B), ("C", C)):
+        _check(name, t, (n_s, n_s, n), dev)
+    _check("D", D, (n_s, n_k, n), dev)
+    X = torch.empty((n_s, n_s, n), dtype=torch.float64, device=dev)
+    M = torch.empty((n_s, n_k, n), dtype=torch.float64, device=dev)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return X, M, ok
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.smc_re_solve(
+            n_s, n_k, A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+            X.data_ptr(), M.data_ptr(), ok.data_ptr(), n, int(n_iter),
+            float(tol), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "RE solve")
+    LAUNCHES["re"] += 1
+    return X, M, ok
+
+
+def kalman_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H, data, ok=None,
+                         lyap_iter: int = 30):
+    """Chandrasekhar Kalman log-likelihood: T [n,n,N], R [n,k,N], Q [k,k,N],
+    Z [3,n,N], d_obs [3,N], H [3,3,N], data [3,T] -> loglh [N]. Particles
+    with ok == False (optional bool [N]) get -inf. The kernel exits the
+    Lyapunov doubling per particle once it has converged."""
+    if T_mat.device.type == "cpu":
+        ll = bl_kalman_loglike_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H,
+                                             data)
+        return ll if ok is None else torch.where(ok, ll, float("-inf"))
+    dev = _cuda_device(T_mat)
+    n_s, n_k, n = T_mat.shape[0], R_mat.shape[1], T_mat.shape[-1]
+    _sizes(n_s, n_k)
+    n_t = data.shape[-1]
+    _check("T", T_mat, (n_s, n_s, n), dev)
+    _check("R", R_mat, (n_s, n_k, n), dev)
+    _check("Q", Q, (n_k, n_k, n), dev)
+    _check("Z", Z, (N_OBS, n_s, n), dev)
+    _check("d_obs", d_obs, (N_OBS, n), dev)
+    _check("H", H, (N_OBS, N_OBS, n), dev)
+    _check("data", data, (N_OBS, n_t), dev)
+    if ok is not None:
+        _check("ok", ok, (n,), dev, torch.bool)
+    if 8 * N_OBS * n_t > _MAX_SMEM:
+        raise ValueError(f"T={n_t} observations do not fit the kernel's "
+                         "shared memory")
+    out = torch.empty(n, dtype=torch.float64, device=dev)
+    if n == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(dev):
+        rc = lib.smc_kalman(
+            n_s, n_k, T_mat.data_ptr(), R_mat.data_ptr(), Q.data_ptr(),
+            Z.data_ptr(), d_obs.data_ptr(), H.data_ptr(), data.data_ptr(),
+            n_t, None if ok is None else ok.data_ptr(), n, int(lyap_iter),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "Kalman")
+    LAUNCHES["kalman"] += 1
+    return out
+
+
+def dsge_loglike(A, B, C, D, Q, Z, d_obs, H, data):
+    """Full DSGE likelihood: RE solve, then the Kalman filter on the
+    particles whose solve succeeded; rejected draws -> -inf."""
+    X, M, ok = solve_linear_re(A, B, C, D)
+    return kalman_chandrasekhar(X, M, Q, Z, d_obs, H, data, ok=ok)

@@ -1,0 +1,51 @@
+"""Initialization: prior draws with redraw-until-valid (port of
+smc_tpu/ops/initialization.py, `initial_draw`).
+
+Masked redraw rounds on the host: draw all N, evaluate them in one batched
+likelihood call, then redraw and evaluate only the invalid rows, until every
+particle has a finite likelihood and prior. Each round is one likelihood
+call and one host read of the invalid count.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from smc_tpu_torch.cloud import Cloud
+
+
+def _eval_batch(space, loglike_batched, draws):
+    """(loglh, logprior); any non-finite value forces both to -inf."""
+    logprior = space.log_prior(draws)
+    loglh = loglike_batched(draws)
+    bad = ~torch.isfinite(loglh) | ~torch.isfinite(logprior)
+    return (torch.where(bad, float("-inf"), loglh),
+            torch.where(bad, float("-inf"), logprior))
+
+
+def initial_draw(draws, space, loglike_batched: Callable, n_parts: int,
+                 device="cpu", max_rounds: int = 1000) -> Tuple[Cloud, int]:
+    """n_parts valid prior draws. Returns (cloud, redraw rounds taken);
+    raises after max_rounds rounds."""
+    params = space.sample_prior(draws, n_parts, device=device)
+    loglh, logprior = _eval_batch(space, loglike_batched, params)
+    invalid = torch.nonzero(~torch.isfinite(loglh)).flatten()
+    rounds = 0
+    while invalid.numel() > 0:
+        rounds += 1
+        if rounds > max_rounds:
+            raise RuntimeError(
+                f"initial_draw: {invalid.numel()}/{n_parts} particles still "
+                f"invalid after {max_rounds} redraw rounds: the prior puts "
+                "almost no mass where the likelihood is finite")
+        fresh = space.sample_prior(draws, invalid.numel(), device=device)
+        l_new, lp_new = _eval_batch(space, loglike_batched, fresh)
+        params[invalid] = fresh
+        loglh[invalid] = l_new
+        logprior[invalid] = lp_new
+        invalid = invalid[~torch.isfinite(l_new)]
+    cloud = Cloud.create(space.n_para, n_parts, device=device)
+    cloud.params, cloud.loglh, cloud.logprior = params, loglh, logprior
+    return cloud, rounds

@@ -1,0 +1,110 @@
+"""The draws interface: every random number the port consumes goes through it.
+
+Stage functions never touch a generator directly; they ask a draws object for
+`uniform`, `normal`, `categorical`, `permutation` or `standard_gamma`. Two
+implementations:
+
+* `TorchDraws` wraps one explicit `torch.Generator` on the tensors' device
+  (a CUDA generator for CUDA tensors), so a run is reproducible from its seed.
+* `ReplayDraws` serves recorded numpy arrays in FIFO order. Tests record the
+  draws the JAX package made (its PRNG differs from torch's) and replay them
+  here, which makes one stage of the port comparable to one stage of the
+  reference to rounding. A request whose kind or shape differs from the next
+  recorded entry raises, so a change in draw order cannot pass silently.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Iterable, Tuple
+
+import numpy as np
+import torch
+
+_F64 = torch.float64
+
+
+def _shape(shape) -> Tuple[int, ...]:
+    if isinstance(shape, int):
+        return (shape,)
+    return tuple(int(s) for s in shape)
+
+
+class TorchDraws:
+    """Draws from one `torch.Generator` seeded with `seed` on `device`."""
+
+    def __init__(self, seed: int, device="cpu"):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+
+    def uniform(self, shape) -> torch.Tensor:
+        """U[0, 1) f64 of `shape`."""
+        return torch.rand(_shape(shape), generator=self.generator, dtype=_F64,
+                          device=self.device)
+
+    def normal(self, shape) -> torch.Tensor:
+        """Standard normal f64 of `shape`."""
+        return torch.randn(_shape(shape), generator=self.generator, dtype=_F64,
+                           device=self.device)
+
+    def categorical(self, probs, n: int) -> torch.Tensor:
+        """n iid indices into `probs` (need not be normalized), int64 [n],
+        by inverse CDF: first index whose cumulative probability exceeds u."""
+        p = torch.as_tensor(probs, dtype=_F64, device=self.device)
+        cdf = torch.cumsum(p / p.sum(), 0)
+        u = self.uniform((n,))
+        return torch.searchsorted(cdf, u, right=True).clamp_(0, p.numel() - 1)
+
+    def permutation(self, n: int) -> torch.Tensor:
+        """A uniformly random permutation of 0..n-1, int64 [n]."""
+        return torch.randperm(int(n), generator=self.generator,
+                              device=self.device)
+
+    def standard_gamma(self, alpha: torch.Tensor) -> torch.Tensor:
+        """Gamma(alpha, 1) draws, one per entry of `alpha` (f64)."""
+        a = torch.as_tensor(alpha, dtype=_F64, device=self.device).contiguous()
+        return torch._standard_gamma(a, generator=self.generator)
+
+
+class ReplayDraws:
+    """Serves recorded draws in order. `entries` is an iterable of
+    (kind, array) with kind one of the TorchDraws method names."""
+
+    def __init__(self, entries: Iterable, device="cpu"):
+        self.device = torch.device(device)
+        self._queue = deque((str(k), np.asarray(v)) for k, v in entries)
+
+    def remaining(self) -> int:
+        return len(self._queue)
+
+    def _next(self, kind: str, shape) -> np.ndarray:
+        if not self._queue:
+            raise RuntimeError(f"ReplayDraws exhausted: asked for {kind}"
+                               f"{tuple(shape)}")
+        k, v = self._queue.popleft()
+        if k != kind or tuple(v.shape) != tuple(shape):
+            raise RuntimeError(
+                f"ReplayDraws mismatch: asked for {kind}{tuple(shape)}, next "
+                f"recorded entry is {k}{tuple(v.shape)}")
+        return v
+
+    def _f64(self, v):
+        return torch.as_tensor(np.array(v, np.float64), device=self.device)
+
+    def uniform(self, shape) -> torch.Tensor:
+        return self._f64(self._next("uniform", _shape(shape)))
+
+    def normal(self, shape) -> torch.Tensor:
+        return self._f64(self._next("normal", _shape(shape)))
+
+    def categorical(self, probs, n: int) -> torch.Tensor:
+        v = self._next("categorical", (int(n),))
+        return torch.as_tensor(v.astype(np.int64), device=self.device)
+
+    def permutation(self, n: int) -> torch.Tensor:
+        v = self._next("permutation", (int(n),))
+        return torch.as_tensor(v.astype(np.int64), device=self.device)
+
+    def standard_gamma(self, alpha) -> torch.Tensor:
+        return self._f64(self._next("standard_gamma", tuple(alpha.shape)))

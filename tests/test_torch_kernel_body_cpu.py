@@ -1,0 +1,122 @@
+"""The CUDA kernels' per-particle bodies (csrc/dsge_particle.cuh), compiled
+for the host with g++ through csrc/dsge_cpu.cpp, against the plain PyTorch
+versions. This is the CPU's view of the kernels' arithmetic; the kernels
+themselves run only on the card (chip_smoke.py)."""
+
+import ctypes
+import shutil
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from smc_tpu_torch import _build
+from smc_tpu_torch.models import as_dsge as tas
+from smc_tpu_torch.models.dsge import (bl_solve_linear_re,
+                                       bl_kalman_loglike_chandrasekhar)
+
+from torch_parity import as_prior_draws, assert_loglh_close, tiny_system
+
+
+@pytest.fixture(scope="module")
+def lib():
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the host version of the kernel bodies")
+    lib = ctypes.CDLL(str(_build.build_cpu_library()))
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.smc_re_solve_cpu.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
+                                     ctypes.c_double]
+    lib.smc_re_solve_cpu.restype = I
+    lib.smc_kalman_cpu.argtypes = [I, I, P, P, P, P, P, P, P, I, P, L, I, P]
+    lib.smc_kalman_cpu.restype = I
+    return lib
+
+
+def _re(lib, A, B, C, D):
+    n_s, n_k, n = A.shape[0], D.shape[1], A.shape[-1]
+    X = torch.empty((n_s, n_s, n), dtype=torch.float64)
+    M = torch.empty((n_s, n_k, n), dtype=torch.float64)
+    ok = torch.empty(n, dtype=torch.bool)
+    rc = lib.smc_re_solve_cpu(n_s, n_k, A.data_ptr(), B.data_ptr(),
+                              C.data_ptr(), D.data_ptr(), X.data_ptr(),
+                              M.data_ptr(), ok.data_ptr(), n, 16, 1e-8)
+    assert rc == 0
+    return X, M, ok
+
+
+def _kalman(lib, X, M, Q, Z, d, H, data, ok):
+    n = X.shape[-1]
+    out = torch.empty(n, dtype=torch.float64)
+    rc = lib.smc_kalman_cpu(X.shape[0], M.shape[1], X.data_ptr(),
+                            M.data_ptr(), Q.data_ptr(), Z.data_ptr(),
+                            d.data_ptr(), H.data_ptr(), data.data_ptr(),
+                            data.shape[1], ok.data_ptr(), n, 30,
+                            out.data_ptr())
+    assert rc == 0
+    return out
+
+
+@pytest.fixture(scope="module")
+def case():
+    th = torch.as_tensor(as_prior_draws(256, seed=3))
+    d, Z, H = tas._measurement(th)
+    data = torch.as_tensor(tas.load_as_data()).contiguous()
+    return tas._system(th), (tas._shock_cov(th), Z, d, H, data)
+
+
+def test_re_body_matches_plain(lib, case):
+    sys_t, _ = case
+    X, M, ok = _re(lib, *sys_t)
+    Xp, Mp, okp = bl_solve_linear_re(*sys_t)
+    assert torch.equal(ok, okp)
+    assert 0 < int(ok.sum()) < 256
+    np.testing.assert_allclose(X.numpy(), Xp.numpy(), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(M.numpy(), Mp.numpy(), rtol=1e-10, atol=1e-12)
+
+
+def test_kalman_body_matches_plain(lib, case):
+    sys_t, (Q, Z, d, H, data) = case
+    Xp, Mp, okp = bl_solve_linear_re(*sys_t)
+    got = _kalman(lib, Xp, Mp, Q, Z, d, H, data, okp)
+    want = torch.where(okp, bl_kalman_loglike_chandrasekhar(
+        Xp, Mp, Q, Z, d, H, data), float("-inf"))
+    assert_loglh_close(got.numpy(), want.numpy())
+
+
+def test_nan_lane_is_isolated(lib, case):
+    sys_t, (Q, Z, d, H, data) = case
+    X, M, ok = _re(lib, *sys_t)
+    ll = _kalman(lib, X, M, Q, Z, d, H, data, ok)
+    A_nan = sys_t[0].clone()
+    j = 17
+    A_nan[:, :, j] = float("nan")
+    X2, M2, ok2 = _re(lib, A_nan, *sys_t[1:])
+    ll2 = _kalman(lib, X2, M2, Q, Z, d, H, data, ok2)
+    keep = torch.arange(256) != j
+    assert not bool(ok2[j]) and ll2[j].item() == float("-inf")
+    assert torch.equal(X2[..., keep], X[..., keep])
+    assert torch.equal(M2[..., keep], M[..., keep])
+    assert torch.equal(ok2[keep], ok[keep])
+    assert torch.equal(ll2[keep], ll[keep])
+    # without the ok mask the body itself rejects the NaN particle
+    nan_sys = [torch.full_like(t[..., :1], float("nan")).contiguous()
+               for t in (Q, Z, d, H)]
+    Xn = torch.full((6, 6, 1), float("nan"), dtype=torch.float64)
+    Mn = torch.full((6, 3, 1), float("nan"), dtype=torch.float64)
+    out = _kalman(lib, Xn, Mn, *nan_sys, data,
+                  torch.ones(1, dtype=torch.bool))
+    assert out.item() == float("-inf")
+
+
+def test_tiny_system_body_matches_plain(lib):
+    A, B, C, D, Q, Z, d, H, data = (torch.as_tensor(a).contiguous()
+                                    for a in tiny_system())
+    X, M, ok = _re(lib, A, B, C, D)
+    Xp, Mp, okp = bl_solve_linear_re(A, B, C, D)
+    assert bool(ok.all()) and bool(okp.all())
+    np.testing.assert_allclose(X.numpy(), Xp.numpy(), rtol=1e-12, atol=1e-14)
+    got = _kalman(lib, X, M, Q, Z, d, H, data, ok)
+    want = bl_kalman_loglike_chandrasekhar(Xp, Mp, Q, Z, d, H, data)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12)

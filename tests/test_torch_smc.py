@@ -1,0 +1,213 @@
+"""smc_tpu_torch's SMC recursion: three stages replayed against the JAX stage
+body, whole runs against the regression model's exact posterior and the AS
+accuracy gate, and seed determinism."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax
+import jax.numpy as jnp
+
+from smc_tpu.params import ParamSpace as JParamSpace
+from smc_tpu.smc import make_stage_core as j_make_stage_core
+from smc_tpu.models import as_dsge as jas
+
+import smc_tpu_torch
+from smc_tpu_torch.params import ParamSpace, ARRAY_FIELDS
+from smc_tpu_torch.cloud import weighted_cov
+from smc_tpu_torch.smc import make_stage_core
+from smc_tpu_torch.ops.correction import correct
+from smc_tpu_torch.ops.resample import resample
+from smc_tpu_torch.ops.schedule import fixed_schedule
+from smc_tpu_torch.rng import ReplayDraws
+from smc_tpu_torch.models import as_dsge as tas
+from smc_tpu_torch.models.regression import (regression_parameters,
+                                             make_regression_loglike,
+                                             generate_regression_data)
+
+from torch_parity import as_posterior_draws
+from torch_replay import replay_mutation
+
+
+def _stage_replay(skey, tspace, state, phi_n, phi_n1, threshold, resampled):
+    """Replay entries for one port stage from the JAX stage key: the
+    resampling uniform (only if the stage resamples), the permutation, the
+    mutation draws (sign-matched to the port's own block covariance)."""
+    kr, kp, km = jax.random.split(skey, 3)
+    params, loglh, logprior, old, weights = state
+    _, norm_w, ess, _ = correct(loglh, old, weights, phi_n, phi_n1)
+    assert bool(ess < threshold) == resampled
+    entries = []
+    w = norm_w
+    if resampled:
+        u = np.asarray(jax.random.uniform(kr, (), dtype=jnp.float64))
+        entries.append(("uniform", u))
+        params = params[resample(ReplayDraws([("uniform", u)]), norm_w)]
+        w = torch.ones_like(norm_w)
+    perm = np.asarray(jax.random.permutation(kp, tspace.n_free))
+    entries.append(("permutation", perm))
+    cov = weighted_cov(params[:, torch.as_tensor(tspace.free_inds)], w)
+    cov = (0.5 * (cov + cov.T)).numpy()
+    entries += replay_mutation(km, params.shape[0], cov, perm,
+                               [tspace.n_free], 0.9)
+    return entries
+
+
+def test_three_stages_match_jax_stage_core():
+    """Stages 40-42 of the AS schedule at N=256 from a skewed cloud near the
+    posterior (the first stage resamples, the others do not)."""
+    n = 256
+    data = tas.load_as_data()
+    jspace = JParamSpace(jas.an_schorfheide_parameters())
+    tspace = ParamSpace.from_numpy({k: getattr(jspace, k)
+                                    for k in ARRAY_FIELDS})
+    jmodel = jas.an_schorfheide()
+    jll = jax.jit(lambda t: jmodel.loglike_batched(t, data))
+    tmodel = tas.an_schorfheide()
+    threshold = 0.5 * n
+    jstage = j_make_stage_core(jspace, jll, 1, 1, 0.9, "systematic",
+                               threshold)
+    tstage = make_stage_core(tspace, lambda t: tmodel.loglike_batched(t, data),
+                             1, 1, 0.9, "systematic", threshold)
+
+    th = as_posterior_draws(n, seed=9, scale=0.01)
+    ll = np.asarray(jll(jnp.asarray(th)))
+    lp = np.asarray(jspace.log_prior(jnp.asarray(th)))
+    w = np.exp(2.5 * np.random.default_rng(10).standard_normal(n))
+    w = n * w / w.sum()
+    jstate = tuple(jnp.asarray(a) for a in (th, ll, lp, np.zeros(n), w))
+    tstate = tuple(torch.tensor(a) for a in (th, ll, lp, np.zeros(n), w))
+    sched = fixed_schedule(100, 2.0)
+    key = jax.random.PRNGKey(11)
+    resampled_any = []
+    for s in (40, 41, 42):
+        phi_n1, phi_n = float(sched[s - 1]), float(sched[s])
+        key, skey = jax.random.split(key)
+        jout = jstage(skey, *jstate, phi_n, phi_n1, 0.3)
+        did = bool(jout[9])
+        resampled_any.append(did)
+        draws = ReplayDraws(_stage_replay(skey, tspace, tstate, phi_n, phi_n1,
+                                          threshold, did))
+        tout = tstage(draws, *tstate, phi_n, phi_n1, 0.3)
+        assert draws.remaining() == 0
+        assert tout[9] == did
+        np.testing.assert_array_equal(tout[5].numpy(), np.asarray(jout[5]))
+        for i in (0, 1, 4):          # params, loglh, weights
+            np.testing.assert_allclose(tout[i].numpy(), np.asarray(jout[i]),
+                                       rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(tout[8], float(jout[8]), rtol=1e-9)
+        np.testing.assert_allclose(tout[11], float(jout[11]), rtol=1e-9)
+        jstate = tuple(jout[:5])
+        tstate = tuple(tout[:5])
+    assert resampled_any == [True, False, False]
+
+
+# --- whole runs on the regression model: exact oracle -----------------------
+
+SIGMA2 = 1.0
+PRIOR_SD = 10.0
+
+
+@pytest.fixture(scope="module")
+def oracle():
+    """Closed-form posterior N(mu_n, Sigma_n) and log evidence."""
+    y, x = generate_regression_data(n=100, seed=1793)
+    yv = y[0]
+    X = np.column_stack([np.ones_like(x), x])
+    prec_n = np.eye(2) / PRIOR_SD ** 2 + X.T @ X / SIGMA2
+    Sigma_n = np.linalg.inv(prec_n)
+    mu_n = Sigma_n @ (X.T @ yv / SIGMA2)
+    S_marg = SIGMA2 * np.eye(len(yv)) + PRIOR_SD ** 2 * X @ X.T
+    _, logdet = np.linalg.slogdet(S_marg)
+    quad = yv @ np.linalg.solve(S_marg, yv)
+    log_z = -0.5 * (len(yv) * np.log(2 * np.pi) + logdet + quad)
+    return (y, x), mu_n, Sigma_n, float(log_z)
+
+
+@pytest.fixture(scope="module")
+def runs(oracle):
+    (y, x), _, _, _ = oracle
+    ll = make_regression_loglike(x, sigma2=SIGMA2)
+    return [smc_tpu_torch.smc(ll, regression_parameters(), y, n_parts=4000,
+                              n_phi=100, lam=2.0, alpha=0.9, verbose="none",
+                              seed=7000 + r)
+            for r in range(4)]
+
+
+def test_regression_posterior_mean_matches_analytic(oracle, runs):
+    _, mu_n, Sigma_n, _ = oracle
+    sd_n = np.sqrt(np.diag(Sigma_n))
+    for res in runs:
+        mu = res.posterior_mean()
+        assert np.all(np.abs(mu - mu_n) < 0.35 * sd_n), (mu, mu_n, sd_n)
+
+
+def test_regression_posterior_cov_matches_analytic(oracle, runs):
+    _, _, Sigma_n, _ = oracle
+    for res in runs:
+        cov = weighted_cov(res.cloud).numpy()
+        assert (np.abs(cov - Sigma_n) / np.abs(Sigma_n).max()).max() < 0.25
+
+
+def test_regression_log_mdd_matches_analytic(oracle, runs):
+    _, _, _, log_z = oracle
+    mdds = np.array([res.log_mdd for res in runs])
+    assert np.all(np.abs(mdds - log_z) < 0.2), (mdds, log_z)
+    for res in runs:   # the w/W bookkeeping: 99 stages + the initial column
+        assert res.w.shape == res.W.shape == (4000, 100)
+        assert res.cloud.tempering_schedule[-1] == 1.0
+
+
+# --- whole run on AS: the 4-sd gate of tests/test_as_estimation.py ---------
+
+def test_as_estimation_posterior_within_4_std():
+    model = tas.an_schorfheide()
+    res = smc_tpu_torch.smc(
+        model.loglike_batched, tas.an_schorfheide_parameters(),
+        tas.load_as_data(), batched=True, n_parts=400, n_phi=100, lam=2.0,
+        resampling_method="systematic", verbose="none", seed=42)
+    mu, sd = res.posterior_mean(), res.posterior_std()
+    z = np.abs(mu - tas.TRUE_PARAMS) / np.maximum(sd, 1e-9)
+    assert np.all(z < 4.0), dict(zip(res.para_names, z))
+    assert np.isfinite(res.log_mdd)
+    assert np.isfinite(res.cloud.loglh.numpy()).all()
+    assert 0.0 < res.cloud.accept_rate < 1.0
+
+
+def test_same_seed_runs_are_bitwise_equal():
+    y, x = generate_regression_data(n=100, seed=1793)
+    ll = make_regression_loglike(x)
+    a, b = (smc_tpu_torch.smc(ll, regression_parameters(), y, n_parts=1000,
+                              n_phi=30, lam=2.0, alpha=0.9, verbose="none",
+                              seed=3) for _ in range(2))
+    assert a.log_mdd == b.log_mdd
+    assert torch.equal(a.cloud.params, b.cloud.params)
+    assert torch.equal(a.cloud.weights, b.cloud.weights)
+    np.testing.assert_array_equal(a.W, b.W)
+    c = smc_tpu_torch.smc(ll, regression_parameters(), y, n_parts=1000,
+                          n_phi=30, lam=2.0, alpha=0.9, verbose="none",
+                          seed=4)
+    assert not torch.equal(a.cloud.params, c.cloud.params)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(use_fixed_schedule=False), dict(old_data=np.zeros((1, 3))),
+    dict(continue_intermediate=True), dict(save_intermediate=True),
+    dict(savepath="cloud.npz"), dict(mesh=object()),
+    dict(resampling_method="metropolis"), dict(verbose="high")])
+def test_unported_paths_raise(kwargs):
+    y, x = generate_regression_data(n=10, seed=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        smc_tpu_torch.smc(make_regression_loglike(x), regression_parameters(),
+                          y, n_parts=10, n_phi=3, **kwargs)
+
+
+def test_verbose_low_prints_each_stage(capsys):
+    y, x = generate_regression_data(n=50, seed=2)
+    smc_tpu_torch.smc(make_regression_loglike(x), regression_parameters(), y,
+                      n_parts=200, n_phi=6, verbose="low", seed=1)
+    out = capsys.readouterr().out
+    assert out.count("stage ") == 5 and "ESS=" in out

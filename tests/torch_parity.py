@@ -1,0 +1,79 @@
+"""Shared inputs and tolerances for the smc_tpu_torch parity tests
+(tests/test_torch_*.py). Not a test module itself."""
+
+import numpy as np
+
+# Tolerance bands for log-likelihoods computed by two implementations of the
+# Chandrasekhar recursion (JAX vs PyTorch, or a kernel body vs its plain
+# version). The recursion is not self-correcting: on draws far from the data
+# (innovations orders of magnitude off, F nearly singular with H = 1e-10) a
+# rounding difference in the first steps is amplified. Measured on prior
+# draws: within 50 nats of the best lane (the posterior band of bench.py's
+# gate) two implementations agree to ~1e-14 relative; within 1e6 nats to
+# ~1e-8; beyond that, only the -inf pattern is stable. Such lanes carry no
+# posterior weight.
+BAND_NATS = 50.0
+BAND_RTOL = 1e-10
+TAIL_NATS = 1e6
+TAIL_RTOL = 1e-7
+
+
+def assert_loglh_close(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    fin = np.isfinite(want)
+    assert fin.any()
+    best = want[fin].max()
+    band = fin & (want > best - BAND_NATS)
+    tail = fin & (want > best - TAIL_NATS)
+    np.testing.assert_allclose(got[band], want[band], rtol=BAND_RTOL, atol=0)
+    np.testing.assert_allclose(got[tail], want[tail], rtol=TAIL_RTOL, atol=0)
+
+
+def as_prior_draws(n, seed):
+    """n draws [n, 13] from the An-Schorfheide prior, made with numpy."""
+    rng = np.random.default_rng(seed)
+
+    def gamma_ms(mean, std):
+        return rng.gamma((mean / std) ** 2, std * std / mean, n)
+
+    def rig(nu, tau):
+        return tau * np.sqrt(nu / rng.chisquare(nu, n))
+
+    return np.stack([
+        gamma_ms(2.0, 0.5), rng.uniform(0, 1, n), gamma_ms(1.5, 0.25),
+        gamma_ms(0.5, 0.25), gamma_ms(0.5, 0.5), gamma_ms(7.0, 2.0),
+        rng.normal(0.4, 0.2, n), rng.uniform(0, 1, n), rng.uniform(0, 1, n),
+        rng.uniform(0, 1, n), rig(4.0, 0.4), rig(4.0, 1.0), rig(4.0, 0.5),
+    ], axis=1)
+
+
+def as_posterior_draws(n, seed, scale=0.02):
+    """n draws near the An-Schorfheide DGP values (relative jitter `scale`):
+    particles where every likelihood is well inside the posterior band."""
+    from smc_tpu_torch.models.as_dsge import TRUE_PARAMS
+    rng = np.random.default_rng(seed)
+    th = TRUE_PARAMS * (1.0 + scale * rng.standard_normal((n, 13)))
+    th[:, 7:10] = np.clip(th[:, 7:10], 0.01, 0.99)
+    return th
+
+
+def tiny_system(N=64, seed=5):
+    """The 3-state backward-looking system of test_pallas_dsge.py."""
+    rng = np.random.default_rng(seed)
+    n_s = 3
+    A = np.zeros((n_s, n_s, N))
+    B = np.zeros((n_s, n_s, N))
+    C = np.zeros((n_s, n_s, N))
+    D = np.zeros((n_s, 3, N))
+    for k in range(N):
+        rho = rng.uniform(0.2, 0.8, n_s)
+        B[..., k] = np.eye(n_s)
+        A[..., k] = -np.diag(rho)
+        D[..., k] = -np.eye(n_s)
+    Q = np.tile(np.eye(3)[:, :, None], (1, 1, N))
+    Z = np.tile(np.eye(3)[:, :, None], (1, 1, N)) * 1.5
+    d = np.zeros((3, N))
+    H = np.tile((0.1 * np.eye(3))[:, :, None], (1, 1, N))
+    data = rng.standard_normal((3, 5))
+    return A, B, C, D, Q, Z, d, H, data

@@ -1,0 +1,44 @@
+"""JAX draws recorded for replay through smc_tpu_torch.rng.ReplayDraws, for
+the parity tests (tests/test_torch_*.py). Not a test module itself.
+
+torch.linalg.eigh and jnp.linalg.eigh may return eigenvectors of opposite
+sign. The full-covariance step is c * (eps * sqrt_lam) @ U.T, so a column
+flipped by s_i is undone by replaying eps_i * s_i; the diagonal component
+(comp == 1) uses eps directly and gets it unflipped."""
+
+import numpy as np
+import torch
+import jax
+import jax.numpy as jnp
+
+
+def _eigh_signs(cov_b):
+    Uj = np.asarray(jnp.linalg.eigh(jnp.asarray(cov_b))[1])
+    Ut = torch.linalg.eigh(torch.as_tensor(cov_b))[1].numpy()
+    s = np.sign(np.sum(Uj * Ut, axis=0))
+    assert np.all(np.abs(np.abs(np.sum(Uj * Ut, axis=0)) - 1) < 1e-8)
+    return s
+
+
+def replay_mutation(key, n, cov_free, perm, sizes, alpha):
+    """The draws JAX's mutation_step makes from `key`, in the port's order,
+    with eps sign-matched to torch's eigenvectors."""
+    entries = []
+    off = 0
+    for k in sizes:
+        key, kcomp, keps, ku = jax.random.split(key, 4)
+        eps = np.asarray(jax.random.normal(keps, (n, k), dtype=jnp.float64))
+        idx = perm[off:off + k]
+        off += k
+        s = _eigh_signs(cov_free[np.ix_(idx, idx)])
+        if alpha < 1.0:
+            comp = np.asarray(jax.random.choice(
+                kcomp, 3, (n,),
+                p=jnp.array([alpha, (1 - alpha) / 2, (1 - alpha) / 2])))
+            eps = np.where((comp != 1)[:, None], eps * s, eps)
+            entries += [("normal", eps), ("categorical", comp)]
+        else:
+            entries += [("normal", eps * s)]
+        entries.append(("uniform", np.asarray(jax.random.uniform(
+            ku, (n,), dtype=jnp.float64))))
+    return entries
