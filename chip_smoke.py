@@ -9,8 +9,10 @@ smc_tpu_torch.smc on the card.
 Needs one CUDA card and nvcc (the kernels are built from csrc/ at first
 use). Every phase raises on failure and the script exits nonzero; it never
 falls back to the CPU. The line before the last is a JSON object with each
-kernel's launches on the main path, error against its plain version and
-time; the last line is {"ok": true, "device": {...}}.
+kernel's launches on the main path, error against its plain version, time
+(the mean of 20 back-to-back calls), its plain version's time and its bound
+(the least time for the work these inputs need, from the f64 peak and the
+memory rate); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -45,20 +47,45 @@ def smi_line() -> str:
     return (p.stdout.strip().splitlines() or [p.stderr.strip()])[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median ms of `reps` synchronized runs of fn, after one warm-up."""
+def ptxas_lines(log: str):
+    """One line per kernel instantiation from nvcc -Xptxas -v output:
+    registers, stack, spill stores and loads."""
+    import re
+    out, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(re_kernel|kalman_kernel)ILi(\d+)ELi(\d+)E",
+                          m.group(1))
+            name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>"
+                    if k else m.group(1))
+        elif "spill stores" in line:
+            frame = line.split(":", 1)[-1].strip()
+        elif "Used" in line and "registers" in line and name:
+            used = line.split(":", 1)[-1].strip()
+            out.append(f"{name}: {used}; {frame}")
+            name = None
+    return out
+
+
+def cuda_ms(fn, reps: int, batches: int = 5) -> float:
+    """Median over `batches` of the mean ms per call of `reps` back-to-back
+    calls of fn between two CUDA events, after one warm-up call: the device
+    runs the launches back to back, so the host's time per call is hidden
+    behind the kernels' (syncing after each call would add it in)."""
     import torch
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(batches):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -68,6 +95,104 @@ def normwise_rel(a, b):
     num = (a - b).abs().amax(dim=(0, 1))
     den = b.abs().amax(dim=(0, 1)).clamp(min=1e-300)
     return num / den
+
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): f64 on the
+# FMA pipes and HBM3 bandwidth
+PEAK_F64 = 33.5e12          # flop/s
+PEAK_BYTES = 3.35e12        # bytes/s
+
+
+def gj_flops(n, w):
+    """Gauss-Jordan on n x w: per pivot, w-1-k normalizing multiplies and
+    (n-1)(w-1-k) eliminating FMAs (2 flop each)."""
+    return sum((w - 1 - k) * (1 + 2 * (n - 1)) for k in range(n))
+
+
+def re_flops(ns, nk, cr_iters):
+    """flop of the RE solve of one particle that runs `cr_iters` cyclic-
+    reduction iterations (the work of dsge_particle.cuh re_solve_warp)."""
+    prod = 2 * ns ** 3
+    per_iter = gj_flops(ns, 3 * ns) + 4 * prod + 4 * ns * ns
+    spectral = 12 * (prod + 3 * ns * ns) + 2 * ns * ns
+    tail = (gj_flops(ns, 2 * ns) + prod + ns * ns        # X, then B + C X
+            + gj_flops(ns, 2 * ns + nk)                   # M and Fwd
+            + 3 * prod + 2 * ns * ns                      # residual
+            + 2 * spectral)
+    return cr_iters * per_iter + tail
+
+
+def kalman_flops(ns, nk, lyap_iters, n_t):
+    """flop of the Kalman filter of one ok particle (kalman_warp): R Q R',
+    the doubling steps, the set-up of F, K, M and n_t Chandrasekhar steps."""
+    no = 3
+    setup = 2 * ns * nk * nk + 2 * ns * ns * nk
+    per_doubling = 3 * 2 * ns ** 3 + ns * ns
+    first = 2 * ns * ns * no * 2 + 2 * no * no * ns + 60
+    cof = 2 * 6 + 5 + 1
+    per_step = (2 * no * no * ns + 2 * no * ns + 2 * no       # Z W, Z s, v
+                + cof + (1 + no) * (3 * 5 + 1) + 10           # solve, quad
+                + 2 * ns * ns + 2 * ns * no + ns              # s
+                + 2 * no ** 3 + 2 * ns * no * no              # M W'Z', W M W'Z'
+                + 2 * ns * ns * no + 2 * ns * no * no         # new W
+                + 2 * ns * ns * no + ns * no                  # new K
+                + 2 * no * no * ns + no * no + 6              # new F
+                + cof + no * (3 * 5 + 1) + 2 * 2 * no ** 3 + no * no + 6
+                + 8)                                          # new M, guards
+    return setup + lyap_iters * per_doubling + first + n_t * per_step
+
+
+def cr_iterations(A, B, C, n_iter=16):
+    """Per particle, the cyclic-reduction iterations the kernels run on
+    these inputs (the exit rule of re_solve_warp), with the plain steps."""
+    import torch
+    from smc_tpu_torch.ops.linalg import bl_gj_solve, bl_matmul
+    n = A.shape[0]
+    amax = lambda t: t.abs().amax(dim=(0, 1))
+    finite = lambda t: torch.isfinite(t).all(dim=0).all(dim=0)
+    fin = finite(A) & finite(B) & finite(C)
+    scale = torch.where(fin, torch.maximum(torch.maximum(amax(A), amax(B)),
+                                           amax(C)), 0.0)
+    tol_exit = scale.clamp(min=1.0) * 2.0 ** -27
+    iters = torch.full((A.shape[-1],), n_iter, device=A.device)
+    running = torch.ones(A.shape[-1], dtype=torch.bool, device=A.device)
+    A0, A1, A2 = A, B, C
+    for it in range(n_iter):
+        nan = torch.isnan(A0).any(0).any(0) | torch.isnan(A2).any(0).any(0)
+        stop = running & ~nan & (torch.maximum(amax(A0), amax(A2))
+                                 <= tol_exit)
+        iters[stop] = it
+        running &= ~stop
+        SA = bl_gj_solve(A1, torch.cat([A0, A2], dim=1))
+        SA0, SA2 = SA[:, :n], SA[:, n:]
+        A2SA0 = bl_matmul(A2, SA0)
+        A1 = A1 - bl_matmul(A0, SA2) - A2SA0
+        A0, A2 = -bl_matmul(A0, SA0), -bl_matmul(A2, SA2)
+    return iters
+
+
+def lyapunov_iterations(T, n_iter=30):
+    """Per particle, the doubling steps the Kalman kernel runs (exit once
+    max|A_k| <= 1e-20, never on a NaN)."""
+    import torch
+    from smc_tpu_torch.ops.linalg import bl_matmul
+    iters = torch.full((T.shape[-1],), n_iter, device=T.device)
+    running = torch.ones(T.shape[-1], dtype=torch.bool, device=T.device)
+    Ak = T
+    for it in range(n_iter):
+        nan = torch.isnan(Ak).any(0).any(0)
+        stop = running & ~nan & (Ak.abs().amax(dim=(0, 1)) <= 1e-20)
+        iters[stop] = it
+        running &= ~stop
+        Ak = bl_matmul(Ak, Ak)
+    return iters
+
+
+def bound_ms(flop, nbytes):
+    """The least time for the work: the larger of flop over the f64 peak and
+    bytes over the memory rate, and which of the two sets it."""
+    t_ops, t_bytes = flop / PEAK_F64 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def kernel_phase(dev):
@@ -162,25 +287,75 @@ def kernel_phase(dev):
     if not (same and not bool(ok2[j]) and ll2[j].item() == float("-inf")):
         raise RuntimeError("a NaN particle changed other particles")
 
-    # --- times at the main path's shapes ----------------------------------
+    # --- ragged particle counts against the plain versions -----------------
+    first_finite = int(torch.nonzero(torch.isfinite(llp))[0])
+    for j0, n_r in ((0, AS_N_PARTS - 1), (first_finite, 1)):
+        cut = slice(j0, j0 + n_r)
+        sl = [t[..., cut].contiguous() for t in (A, B, C, D, Q, Z, d, H)]
+        Xr, Mr, okr = cuda_dsge.solve_linear_re(*sl[:4])
+        llr = cuda_dsge.kalman_chandrasekhar(Xr, Mr, *sl[4:], data, ok=okr)
+        Xq, Mq, okq = Xp[..., cut], Mp[..., cut], okp[cut]
+        llq = llp[cut]
+        both_r = okr & okq
+        agree_r = (okr == okq).double().mean().item()
+        err_r = max(normwise_rel(Xr[..., both_r], Xq[..., both_r]).max().item(),
+                    normwise_rel(Mr[..., both_r], Mq[..., both_r]).max().item())
+        fin_r = torch.isfinite(llr) & torch.isfinite(llq)
+        band_r = fin_r & (llq > llq[fin_r].max() - 50.0)
+        ll_err_r = ((llr[band_r] - llq[band_r]).abs()
+                    / llq[band_r].abs()).max().item()
+        print(f"# ragged N={n_r}: ok agreement {agree_r:.6f}, X/M max rel err "
+              f"{err_r:.3e}, loglike max rel err {ll_err_r:.3e} over "
+              f"{int(band_r.sum())} band lanes")
+        if not (agree_r >= OK_AGREE_MIN and err_r <= XM_RTOL
+                and ll_err_r <= LL_RTOL and bool(band_r.any())):
+            raise RuntimeError(f"ragged N={n_r} disagrees with the plain "
+                               "versions")
+
+    # --- the work these inputs need, and its bound --------------------------
+    n_s, n_k = A.shape[0], D.shape[1]
+    cr_it = cr_iterations(A, B, C)
+    ly_it = lyapunov_iterations(X[..., ok])
+    re_flop = sum(re_flops(n_s, n_k, int(i)) for i in cr_it.tolist())
+    kal_flop = sum(kalman_flops(n_s, n_k, int(i), data.shape[1])
+                   for i in ly_it.tolist())
+    re_bytes = AS_N_PARTS * (8 * (3 * n_s * n_s + n_s * n_k)
+                             + 8 * (n_s * n_s + n_s * n_k) + 1)
+    kal_bytes = (AS_N_PARTS * (8 * (n_s * n_s + n_s * n_k + n_k * n_k
+                                    + 3 * n_s + 3 + 9) + 1 + 8)
+                 + 8 * data.numel())
+    re_bound, re_by = bound_ms(re_flop, re_bytes)
+    kal_bound, kal_by = bound_ms(kal_flop, kal_bytes)
+    print(f"# work: cyclic reduction {cr_it.double().mean().item():.4f} "
+          f"iterations per particle (max {int(cr_it.max())}), doubling "
+          f"{ly_it.double().mean().item():.4f} (max {int(ly_it.max())}) over "
+          f"{int(ok.sum())} ok particles; re {re_flop:.4e} flop "
+          f"{re_bytes} B, bound {re_bound:.4f} ms ({re_by}); kalman "
+          f"{kal_flop:.4e} flop {kal_bytes} B, bound {kal_bound:.4f} ms "
+          f"({kal_by})")
+
+    # --- times at the main path's shapes -----------------------------------
     re_ms = cuda_ms(lambda: cuda_dsge.solve_linear_re(A, B, C, D), 20)
-    re_plain_ms = cuda_ms(lambda: bl_solve_linear_re(A, B, C, D), 5)
     kal_ms = cuda_ms(lambda: cuda_dsge.kalman_chandrasekhar(
         X, M, Q, Z, d, H, data, ok=ok), 20)
+    re_plain_ms = cuda_ms(lambda: bl_solve_linear_re(A, B, C, D), 2, 3)
     kal_plain_ms = cuda_ms(lambda: torch.where(okp, bl_kalman_loglike_chandrasekhar(
-        Xp, Mp, Q, Z, d, H, data), float("-inf")), 5)
+        Xp, Mp, Q, Z, d, H, data), float("-inf")), 2, 3)
     print(f"# times at N={AS_N_PARTS} (median ms): re kernel {re_ms:.4f} "
-          f"plain {re_plain_ms:.4f}; kalman kernel {kal_ms:.4f} plain "
-          f"{kal_plain_ms:.4f}")
+          f"({100 * re_bound / re_ms:.1f}% of bound) plain {re_plain_ms:.4f}; "
+          f"kalman kernel {kal_ms:.4f} ({100 * kal_bound / kal_ms:.1f}% of "
+          f"bound) plain {kal_plain_ms:.4f}")
     return [
         dict(name="re_solve", route="cuda",
              source="smc_tpu_torch/csrc/dsge_kernels.cu",
              replaces="smc_tpu/ops/pallas_dsge.py:259",
-             max_abs_err=re_abs, ms=re_ms, plain_ms=re_plain_ms),
+             max_abs_err=re_abs, ms=re_ms, plain_ms=re_plain_ms,
+             bound_ms=re_bound, bound_by=re_by, library_ms=None),
         dict(name="kalman_chandrasekhar", route="cuda",
              source="smc_tpu_torch/csrc/dsge_kernels.cu",
              replaces="smc_tpu/ops/pallas_dsge.py:379",
-             max_abs_err=ll_abs, ms=kal_ms, plain_ms=kal_plain_ms),
+             max_abs_err=ll_abs, ms=kal_ms, plain_ms=kal_plain_ms,
+             bound_ms=kal_bound, bound_by=kal_by, library_ms=None),
     ]
 
 
@@ -307,9 +482,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     lib = _build.build_cuda_library()
     print(f"# kernel build {time.perf_counter() - t0:.2f} s ({lib.name})")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"# ptxas {line.strip()}")
+    for line in ptxas_lines(lib.with_suffix(".log").read_text()):
+        print(f"# ptxas {line}")
 
     kernels = kernel_phase(dev)
     launches = main_path(dev)

@@ -38,7 +38,7 @@ class Cloud:
     total_sampling_time: float = 0.0
 
     @classmethod
-    def create(cls, n_para: int, n_parts: int, device="cpu") -> "Cloud":
+    def create(cls, n_para: int, n_parts: int, device="cuda") -> "Cloud":
         z = lambda *s: torch.zeros(s, dtype=torch.float64, device=device)
         return cls(params=z(n_parts, n_para), loglh=z(n_parts),
                    logprior=z(n_parts), old_loglh=z(n_parts),
@@ -47,7 +47,7 @@ class Cloud:
                                       device=device))
 
     @classmethod
-    def from_numpy(cls, fields: Mapping, device="cpu") -> "Cloud":
+    def from_numpy(cls, fields: Mapping, device="cuda") -> "Cloud":
         """A cloud from the saved particle arrays (the ARRAY_FIELDS of e.g.
         np.load of a cloud written by smc_tpu.io.save_cloud); the scalar
         state starts fresh."""

@@ -1,8 +1,16 @@
-// CUDA kernels for the batch-last DSGE likelihood, one thread per particle,
-// with plain C launchers (bound from Python with ctypes, ops/cuda_dsge.py).
+// CUDA kernels for the batch-last DSGE likelihood, a group of lanes per
+// particle (smc::kReLanes for the RE solve, smc::kKalmanLanes for the Kalman
+// filter; bodies in dsge_particle.cuh), with plain C launchers (bound from
+// Python with ctypes, ops/cuda_dsge.py).
 //
 // re_kernel      replaces smc_tpu/ops/pallas_dsge.py::_re_kernel
 // kalman_kernel  replaces smc_tpu/ops/pallas_dsge.py::_kalman_kernel
+//
+// A block is kWarps warps; each warp takes 32 / G neighbouring particles and
+// owns a slice of the block's dynamic shared memory for its groups' tiles
+// (the Kalman kernel stages the observations after them, once per
+// block). A warp past the last particle leaves as a whole; inside a warp
+// every lane runs every exchange, padding rows and missing particles too.
 //
 // Each launcher launches on the given stream, does not synchronise, and
 // returns cudaGetLastError() as an int (nonzero: the launch was refused).
@@ -13,63 +21,124 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * smc::kWarp;
+constexpr int RG = smc::kReLanes;
+constexpr int KG = smc::kKalmanLanes;
+
+template <int NS, int G>
+long long n_warps(long long n) {
+  constexpr int P = smc::Group<NS, G>::kPerWarp;
+  return (n + P - 1) / P;
+}
+
+unsigned int n_blocks(long long warps) {
+  return (unsigned int)((warps + kWarps - 1) / kWarps);
+}
 
 template <int NS, int NK>
 __global__ void __launch_bounds__(kThreads)
 re_kernel(const double* __restrict__ A, const double* __restrict__ B,
           const double* __restrict__ C, const double* __restrict__ D,
           double* __restrict__ X, double* __restrict__ M,
-          unsigned char* __restrict__ ok, long long n, int n_iter, double tol) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  smc::re_solve_particle<NS, NK>(A, B, C, D, X, M, ok, n, idx, n_iter, tol);
+          unsigned char* __restrict__ ok, long long n, long long warps,
+          int n_iter, double tol) {
+  extern __shared__ __align__(16) double smem[];
+  const int w = threadIdx.x / smc::kWarp;
+  const long long warp = (long long)blockIdx.x * kWarps + w;
+  if (warp >= warps) return;
+  smc::re_solve_warp<NS, NK, RG>(
+      A, B, C, D, X, M, ok, n, warp, n_iter, tol,
+      smem + w * smc::ReTile<NS, RG>::kWarpDoubles);
 }
 
-// The observations [3, n_t] are shared by every particle: staged once per
-// block in shared memory. `ok` (nullable) marks particles whose RE solve
-// failed; they get -inf without running the filter.
 template <int NS, int NK>
 __global__ void __launch_bounds__(kThreads)
 kalman_kernel(const double* __restrict__ T, const double* __restrict__ R,
               const double* __restrict__ Q, const double* __restrict__ Z,
               const double* __restrict__ d, const double* __restrict__ H,
               const double* __restrict__ data, int n_t,
-              const unsigned char* __restrict__ ok, long long n, int lyap_iter,
-              double* __restrict__ out) {
-  extern __shared__ double ys[];
-  for (int i = threadIdx.x; i < smc::kNObs * n_t; i += blockDim.x) ys[i] = data[i];
+              const unsigned char* __restrict__ ok, long long n,
+              long long warps, int lyap_iter, double* __restrict__ out) {
+  extern __shared__ __align__(16) double smem[];
+  double* ys = smem + kWarps * smc::KalmanTile<NS, KG>::kWarpDoubles;
+  for (int i = threadIdx.x; i < smc::kNObs * n_t; i += blockDim.x)
+    ys[i] = data[i];
   __syncthreads();
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  if (ok != nullptr && !ok[idx]) {
-    out[idx] = -(double)INFINITY;
-    return;
-  }
-  out[idx] = smc::kalman_particle<NS, NK>(T, R, Q, Z, d, H, ys, n_t, n, idx,
-                                          lyap_iter);
+  const int w = threadIdx.x / smc::kWarp;
+  const long long warp = (long long)blockIdx.x * kWarps + w;
+  if (warp >= warps) return;
+  smc::kalman_warp<NS, NK, KG>(
+      T, R, Q, Z, d, H, ys, n_t, ok, n, warp, lyap_iter, out,
+      smem + w * smc::KalmanTile<NS, KG>::kWarpDoubles);
 }
 
-inline unsigned int n_blocks(long long n) {
-  return (unsigned int)((n + kThreads - 1) / kThreads);
+// Dynamic shared memory above the default 48 KB must be allowed per kernel.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <int NS, int NK>
+int launch_re(const double* A, const double* B, const double* C,
+              const double* D, double* X, double* M, unsigned char* ok,
+              long long n, int n_iter, double tol, cudaStream_t s) {
+  const long long warps = n_warps<NS, RG>(n);
+  const size_t smem =
+      sizeof(double) * kWarps * smc::ReTile<NS, RG>::kWarpDoubles;
+  cudaError_t e = allow_smem(re_kernel<NS, NK>, smem);
+  if (e != cudaSuccess) return (int)e;
+  re_kernel<NS, NK><<<n_blocks(warps), kThreads, smem, s>>>(
+      A, B, C, D, X, M, ok, n, warps, n_iter, tol);
+  return (int)cudaGetLastError();
+}
+
+template <int NS>
+size_t kalman_smem(int n_t) {
+  return sizeof(double) * (smc::kNObs * (size_t)n_t +
+                           kWarps * smc::KalmanTile<NS, KG>::kWarpDoubles);
+}
+
+template <int NS, int NK>
+int launch_kalman(const double* T, const double* R, const double* Q,
+                  const double* Z, const double* d, const double* H,
+                  const double* data, int n_t, const unsigned char* ok,
+                  long long n, int lyap_iter, double* out, cudaStream_t s) {
+  const long long warps = n_warps<NS, KG>(n);
+  const size_t smem = kalman_smem<NS>(n_t);
+  cudaError_t e = allow_smem(kalman_kernel<NS, NK>, smem);
+  if (e != cudaSuccess) return (int)e;
+  kalman_kernel<NS, NK><<<n_blocks(warps), kThreads, smem, s>>>(
+      T, R, Q, Z, d, H, data, n_t, ok, n, warps, lyap_iter, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+#define SMC_SIZES(X) X(6, 3) X(3, 3)
 
 extern "C" int smc_re_solve(int n_s, int n_k, const double* A, const double* B,
                             const double* C, const double* D, double* X,
                             double* M, unsigned char* ok, long long n,
                             int n_iter, double tol, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_s == 6 && n_k == 3)
-    re_kernel<6, 3><<<n_blocks(n), kThreads, 0, s>>>(A, B, C, D, X, M, ok, n,
-                                                     n_iter, tol);
-  else if (n_s == 3 && n_k == 3)
-    re_kernel<3, 3><<<n_blocks(n), kThreads, 0, s>>>(A, B, C, D, X, M, ok, n,
-                                                     n_iter, tol);
-  else
-    return -1;
-  return (int)cudaGetLastError();
+#define SMC_CASE(NS, NK)         \
+  if (n_s == NS && n_k == NK) \
+    return launch_re<NS, NK>(A, B, C, D, X, M, ok, n, n_iter, tol, s);
+  SMC_SIZES(SMC_CASE)
+#undef SMC_CASE
+  return -1;
+}
+
+extern "C" long long smc_kalman_smem_bytes(int n_s, int n_t) {
+#define SMC_CASE(NS, NK) \
+  if (n_s == NS) return (long long)kalman_smem<NS>(n_t);
+  SMC_SIZES(SMC_CASE)
+#undef SMC_CASE
+  return -1;
 }
 
 extern "C" int smc_kalman(int n_s, int n_k, const double* T, const double* R,
@@ -78,14 +147,11 @@ extern "C" int smc_kalman(int n_s, int n_k, const double* T, const double* R,
                           const unsigned char* ok, long long n, int lyap_iter,
                           double* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(double) * smc::kNObs * (size_t)n_t;
-  if (n_s == 6 && n_k == 3)
-    kalman_kernel<6, 3><<<n_blocks(n), kThreads, smem, s>>>(
-        T, R, Q, Z, d, H, data, n_t, ok, n, lyap_iter, out);
-  else if (n_s == 3 && n_k == 3)
-    kalman_kernel<3, 3><<<n_blocks(n), kThreads, smem, s>>>(
-        T, R, Q, Z, d, H, data, n_t, ok, n, lyap_iter, out);
-  else
-    return -1;
-  return (int)cudaGetLastError();
+#define SMC_CASE(NS, NK)                                                      \
+  if (n_s == NS && n_k == NK)                                                 \
+    return launch_kalman<NS, NK>(T, R, Q, Z, d, H, data, n_t, ok, n,          \
+                                 lyap_iter, out, s);
+  SMC_SIZES(SMC_CASE)
+#undef SMC_CASE
+  return -1;
 }

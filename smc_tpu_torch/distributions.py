@@ -156,7 +156,7 @@ def logpdf_family(code, a, b, x):
     return out
 
 
-def sample_family(code, a, b, draws, n: int, device="cpu") -> torch.Tensor:
+def sample_family(code, a, b, draws, n: int, device="cuda") -> torch.Tensor:
     """n draws per column from the stacked priors: `code`, `a`, `b` are host
     arrays of length P. Returns f64 [n, P]; point columns are 0.
 

@@ -9,23 +9,32 @@ Dispatch: a CPU tensor runs the plain PyTorch version (models/dsge.py
 `bl_*`); a CUDA tensor launches the kernel, or raises. There is no fallback.
 `LAUNCHES` counts kernel launches, one per call that reaches the GPU.
 
-The kernels (csrc/dsge_kernels.cu, bodies in csrc/dsge_particle.cuh) run one
-thread per particle in native f64. What bounds them on the card is neither
-memory nor arithmetic at the AS size: the RE solve moves ~2.4 KB per
-particle and does ~6e4 f64 operations (up to 16 cyclic-reduction
-iterations, each a 6x18 Gauss-Jordan solve and four 6x6 products, then two
-12-squaring spectral bounds), the Kalman filter ~80 steps of 3x3 and 6x3
-products; at 16,384 particles that is tens of microseconds of either. They
-are bound by latency: 128-thread blocks give one block of 4 warps per SM,
-and the RE carry (4x36 doubles plus the solve's workspace) exceeds the 255
-registers a thread may hold, so it spills to local memory (cached in L1).
-The design answers with the simplest thing that is right: sizes are
-template parameters so all loops unroll, the pivot swap is written as
-selects so the arrays are never indexed dynamically, each particle exits
-its iteration on its own convergence test (no warp- or tile-wide exit, so a
-NaN particle cannot change a neighbour), the shared observations are staged
-once per block in shared memory, and the Kalman kernel skips particles
-whose RE solve failed. Making them fast is later work (ROADMAP.md).
+The kernels (csrc/dsge_kernels.cu, bodies in csrc/dsge_particle.cuh) run
+in native f64 with a group of G lanes per particle: G = 8 for the RE solve,
+G = 2 for the Kalman filter (smc::kReLanes, smc::kKalmanLanes). Lane r of a
+group keeps rows r, r + G, ... of every matrix of its particle; a product
+reads the other rows from the group's tile in shared memory after a
+__syncwarp. Pivot choice,
+exit tests and norms are read back from the tile in row order by every lane,
+so a group branches as one, and the serial pivot rule (first maximal |entry|
+in the current row order) holds exactly: a row swap only exchanges two
+positions. A warp iterates until every particle in it has left; a particle
+that has left keeps its values, so its result, and a NaN particle's
+neighbours, are those of a per-particle exit.
+
+Their bound on the card is set by f64 arithmetic: at 16,384 AS prior draws
+the RE solve needs ~40k flop per particle (8.6 cyclic-reduction iterations
+on average, each a 6x18 Gauss-Jordan and four 6x6 products, then two solves,
+the residual and two 12-squaring spectral bounds), ~20 us at 33.5 TFLOP/s,
+against 23.6 MB (7 us at 3.35 TB/s); the Kalman filter ~127k flop per ok
+particle (8 doubling steps, 80 Chandrasekhar steps), ~61 us, against
+12.4 MB. One thread per particle left the card with fewer than one warp per
+scheduler and the RE carry spilling; G lanes per particle give G times the
+warps and a carry of RPL = ceil(n/G) rows per lane. The Kalman filter's 3x3
+work (F, M, the innovation solves) is done by every lane of a group, so it
+takes two lanes, the fewest that double the warps; F's adjugate and 1/det
+are made once per F and serve both of the solves that use it. PERF.md holds
+the measured times.
 """
 
 from __future__ import annotations
@@ -43,7 +52,9 @@ LAUNCHES = {"re": 0, "kalman": 0}
 # and the 3-state test system
 SIZES = ((6, 3), (3, 3))
 N_OBS = 3
-_MAX_SMEM = 48 * 1024
+# dynamic shared memory a block may use on Hopper (the launcher raises the
+# kernel's limit above the default 48 KB when it needs to)
+_MAX_SMEM = 227 * 1024
 
 _lib = None
 
@@ -60,6 +71,8 @@ def _library():
         lib.smc_kalman.argtypes = [I, I, P, P, P, P, P, P, P, I, P, L, I, P,
                                    P]
         lib.smc_kalman.restype = I
+        lib.smc_kalman_smem_bytes.argtypes = [I, I]
+        lib.smc_kalman_smem_bytes.restype = L
         _lib = lib
     return _lib
 
@@ -147,13 +160,13 @@ def kalman_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H, data, ok=None,
     _check("data", data, (N_OBS, n_t), dev)
     if ok is not None:
         _check("ok", ok, (n,), dev, torch.bool)
-    if 8 * N_OBS * n_t > _MAX_SMEM:
-        raise ValueError(f"T={n_t} observations do not fit the kernel's "
-                         "shared memory")
     out = torch.empty(n, dtype=torch.float64, device=dev)
     if n == 0:
         return out
     lib = _library()
+    if lib.smc_kalman_smem_bytes(n_s, n_t) > _MAX_SMEM:
+        raise ValueError(f"T={n_t} observations and the group tiles do not "
+                         "fit the kernel's shared memory")
     with torch.cuda.device(dev):
         rc = lib.smc_kalman(
             n_s, n_k, T_mat.data_ptr(), R_mat.data_ptr(), Q.data_ptr(),

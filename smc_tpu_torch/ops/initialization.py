@@ -26,7 +26,7 @@ def _eval_batch(space, loglike_batched, draws):
 
 
 def initial_draw(draws, space, loglike_batched: Callable, n_parts: int,
-                 device="cpu", max_rounds: int = 1000) -> Tuple[Cloud, int]:
+                 device="cuda", max_rounds: int = 1000) -> Tuple[Cloud, int]:
     """n_parts valid prior draws. Returns (cloud, redraw rounds taken);
     raises after max_rounds rounds."""
     params = space.sample_prior(draws, n_parts, device=device)

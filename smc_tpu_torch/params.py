@@ -158,7 +158,7 @@ class ParamSpace:
         total = torch.sum(torch.where(free, lp, 0.0), dim=-1)
         return torch.where(ok & torch.isfinite(total), total, float("-inf"))
 
-    def sample_prior(self, draws, n: int, device="cpu") -> torch.Tensor:
+    def sample_prior(self, draws, n: int, device="cuda") -> torch.Tensor:
         """n prior draws [n, P]; fixed columns at their value. Truncated
         normals by inverse CDF inside their bounds (one uniform block after
         the family draws)."""

@@ -33,7 +33,7 @@ def _shape(shape) -> Tuple[int, ...]:
 class TorchDraws:
     """Draws from one `torch.Generator` seeded with `seed` on `device`."""
 
-    def __init__(self, seed: int, device="cpu"):
+    def __init__(self, seed: int, device="cuda"):
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))

@@ -130,8 +130,12 @@ def smc(loglikelihood: Callable,
         batched: bool = False,
         seed: int = 0,
         mesh=None,
-        device="cpu") -> SMCResult:
+        device="cuda") -> SMCResult:
     """Estimate p(theta | data) by tempered SMC on `device`.
+
+    `device` defaults to "cuda": the run is on the card unless the caller
+    passes device="cpu". Without a card the first tensor it creates raises;
+    nothing falls back to the CPU.
 
     `loglikelihood(theta, data)` maps a tensor f64[P] to a scalar; pass
     `batched=True` if it maps f64[N, P] to f64[N] (a DSGE model's

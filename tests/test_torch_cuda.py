@@ -25,8 +25,8 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _as_inputs(dev, n=2048):
-    th = torch.as_tensor(as_prior_draws(n, seed=3), device=dev)
+def _as_inputs(dev, n=2048, seed=3):
+    th = torch.as_tensor(as_prior_draws(n, seed=seed), device=dev)
     d, Z, H = tas._measurement(th)
     data = torch.as_tensor(tas.load_as_data(), device=dev).contiguous()
     return tas._system(th), (tas._shock_cov(th), Z, d, H, data)
@@ -60,3 +60,20 @@ def test_tiny_system_kernels_match_plain(dev):
     want = bl_dsge_loglike(*args)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-12)
+
+
+@pytest.mark.parametrize("part", ["re", "kalman"])
+@pytest.mark.parametrize("n", [1, 3, 5, 257])
+def test_ragged_n_kernels_match_plain(dev, n, part):
+    sys_t, rest = _as_inputs(dev, n, seed=10 + n)
+    Xp, Mp, okp = bl_solve_linear_re(*sys_t)
+    if part == "re":
+        X, M, ok = cuda_dsge.solve_linear_re(*sys_t)
+        assert torch.equal(ok, okp)
+        for a, b in ((X, Xp), (M, Mp)):
+            np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-10,
+                                       atol=1e-12)
+    else:
+        ll = cuda_dsge.kalman_chandrasekhar(Xp, Mp, *rest, ok=okp)
+        want = bl_dsge_loglike(*sys_t, *rest)
+        assert_loglh_close(ll.cpu().numpy(), want.cpu().numpy())

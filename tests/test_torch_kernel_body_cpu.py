@@ -1,7 +1,10 @@
-"""The CUDA kernels' per-particle bodies (csrc/dsge_particle.cuh), compiled
-for the host with g++ through csrc/dsge_cpu.cpp, against the plain PyTorch
-versions. This is the CPU's view of the kernels' arithmetic; the kernels
-themselves run only on the card (chip_smoke.py)."""
+"""The CUDA kernels' warp bodies (csrc/dsge_particle.cuh), compiled for the
+host with g++ through csrc/dsge_cpu.cpp, against the plain PyTorch versions.
+The host build runs the same group layout as the card (8 lanes per particle
+in the RE solve, 2 in the Kalman filter, 32 lanes per warp, the tile
+exchanges phase by phase), so this is
+the CPU's view of the kernels' arithmetic, pivoting and warp-wide exits; the
+kernels themselves run only on the card (chip_smoke.py)."""
 
 import ctypes
 import shutil
@@ -120,3 +123,109 @@ def test_tiny_system_body_matches_plain(lib):
     got = _kalman(lib, X, M, Q, Z, d, H, data, ok)
     want = bl_kalman_loglike_chandrasekhar(Xp, Mp, Q, Z, d, H, data)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12)
+
+
+def _as_case(n, seed):
+    th = torch.as_tensor(as_prior_draws(n, seed=seed))
+    d, Z, H = tas._measurement(th)
+    data = torch.as_tensor(tas.load_as_data()).contiguous()
+    return tas._system(th), (tas._shock_cov(th), Z, d, H, data)
+
+
+@pytest.mark.parametrize("part", ["re", "kalman"])
+@pytest.mark.parametrize("n", [1, 3, 5, 257])
+def test_ragged_n_matches_plain(lib, n, part):
+    """Particle counts that leave a warp part empty: the missing particles'
+    lanes run every exchange on zeros and write nothing."""
+    sys_t, rest = _as_case(n, seed=10 + n)
+    Xp, Mp, okp = bl_solve_linear_re(*sys_t)
+    if part == "re":
+        X, M, ok = _re(lib, *sys_t)
+        assert torch.equal(ok, okp)
+        np.testing.assert_allclose(X.numpy(), Xp.numpy(), rtol=1e-10,
+                                   atol=1e-12)
+        np.testing.assert_allclose(M.numpy(), Mp.numpy(), rtol=1e-10,
+                                   atol=1e-12)
+    else:
+        got = _kalman(lib, Xp, Mp, *rest, okp)
+        want = torch.where(okp, bl_kalman_loglike_chandrasekhar(Xp, Mp, *rest),
+                           float("-inf"))
+        assert_loglh_close(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("j_nan", [0, 1, 7, 19])
+def test_nan_particle_shares_a_warp_with_converging_ones(lib, j_nan):
+    """A NaN particle keeps its warp iterating to n_iter (an RE warp holds 4
+    particles, 8 lanes each; a Kalman warp 16); the other particles must
+    come out bitwise as when each runs alone (its own exit, no neighbour),
+    and the NaN particle is rejected."""
+    n, per_warp = 20, 4
+    (A, B, C, D), (Q, Z, d, H, data) = _as_case(n, seed=21)
+    A_nan = A.clone()
+    A_nan[:, :, j_nan] = float("nan")
+    X, M, ok = _re(lib, A_nan, B, C, D)
+    ll = _kalman(lib, X, M, Q, Z, d, H, data, ok)
+    assert not bool(ok[j_nan]) and ll[j_nan].item() == float("-inf")
+    w0 = j_nan // per_warp * per_warp
+    assert int(ok[w0:w0 + per_warp].sum()) >= 3
+    for j in range(n):
+        if j == j_nan:
+            continue
+        one = [t[..., j:j + 1].contiguous() for t in (A, B, C, D)]
+        Xj, Mj, okj = _re(lib, *one)
+        assert torch.equal(X[..., j:j + 1], Xj)
+        assert torch.equal(M[..., j:j + 1], Mj)
+        assert torch.equal(ok[j:j + 1], okj)
+        rest = [t[..., j:j + 1].contiguous() for t in (Q, Z, d, H)]
+        llj = _kalman(lib, Xj, Mj, *rest, data, okj)
+        assert torch.equal(ll[j:j + 1], llj)
+
+
+def test_tied_pivot_magnitudes_follow_the_serial_rule(lib):
+    """Columns with tied maximal |entries|: the pivot is the first of them
+    in the current row order (each row sits on another lane of the group).
+    ok and X must match bl_solve_linear_re."""
+    rng = np.random.default_rng(1793)
+    (A, B, C, D), _ = _as_case(64, seed=4)
+    B = B.clone()
+    for j in range(B.shape[-1]):
+        rows = rng.choice(6, size=3, replace=False)
+        top = B[:, 0, j].abs().max() * (1.0 + rng.uniform())
+        signs = torch.as_tensor(rng.choice([-1.0, 1.0], size=3))
+        B[rows, 0, j] = top * signs
+    Xp, Mp, okp = bl_solve_linear_re(A, B, C, D)
+    assert int(okp.sum()) > 10
+    X, M, ok = _re(lib, A, B, C, D)
+    assert torch.equal(ok, okp)
+    np.testing.assert_allclose(X.numpy(), Xp.numpy(), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(M.numpy(), Mp.numpy(), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("gap", [-1e-6, -1e-11, 1e-11, 1e-6])
+def test_spectral_bound_decision_near_one(lib, gap):
+    """The kernel scales by 1/||m|| where the plain version divides by ||m||
+    (the two differ by a rounding): the determinacy decision must still
+    agree with bl_solve_linear_re for solutions whose spectral radius is
+    1 + gap. A + B X + C X^2 = 0 is built from X = V diag(x) V' with V
+    orthogonal (so the bound ||X^4096||_F^(1/4096) is 1 + gap up to
+    rounding), one root x_0 = 1 + gap, the others well inside, and the
+    second roots y = 2.5 (C = I, B = -(x + y), A = x y in that basis)."""
+    rng = np.random.default_rng(2029)
+    n, ns = 8, 6
+    A, B, C, D = (np.empty((ns, ns, n)), np.empty((ns, ns, n)),
+                  np.empty((ns, ns, n)), np.empty((ns, 3, n)))
+    for j in range(n):
+        x = np.concatenate([[1.0 + gap], rng.uniform(-0.6, 0.6, ns - 1)])
+        y = np.full(ns, 2.5)
+        V, _ = np.linalg.qr(rng.standard_normal((ns, ns)))
+        Vi = V.T
+        A[..., j] = V @ np.diag(x * y) @ Vi
+        B[..., j] = V @ np.diag(-(x + y)) @ Vi
+        C[..., j] = np.eye(ns)
+        D[..., j] = rng.standard_normal((ns, 3))
+    A, B, C, D = (torch.as_tensor(t).contiguous() for t in (A, B, C, D))
+    Xp, Mp, okp = bl_solve_linear_re(A, B, C, D)
+    X, M, ok = _re(lib, A, B, C, D)
+    assert torch.equal(ok, okp)
+    assert bool(okp.all()) == (gap < 0) and bool((~okp).all()) == (gap > 0)
+    np.testing.assert_allclose(X.numpy(), Xp.numpy(), rtol=1e-10, atol=1e-12)

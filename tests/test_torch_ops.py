@@ -123,7 +123,7 @@ def test_cloud_from_saved_jax_cloud_and_weighted_stats(tmp_path):
     path = str(tmp_path / "cloud.npz")
     save_cloud(path, jc)
     with np.load(path) as z:
-        cloud = Cloud.from_numpy(z)
+        cloud = Cloud.from_numpy(z, device="cpu")
     for k in ("params", "loglh", "logprior", "old_loglh", "accept",
               "weights"):
         np.testing.assert_array_equal(getattr(cloud, k).numpy(),

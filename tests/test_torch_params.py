@@ -144,7 +144,7 @@ def test_sample_prior_moments():
     below 1% for these families)."""
     n = 200_000
     ts = ParamSpace(_all_families_torch())
-    draws = ts.sample_prior(TorchDraws(11), n).numpy()
+    draws = ts.sample_prior(TorchDraws(11, "cpu"), n, device="cpu").numpy()
     assert draws.shape == (n, ts.n_para)
     for j, (fam, a, b) in enumerate(FAMILIES[1:]):
         m, s = _analytic_moments(fam, a, b, ts.lo[j], ts.hi[j])

@@ -133,7 +133,7 @@ def runs(oracle):
     ll = make_regression_loglike(x, sigma2=SIGMA2)
     return [smc_tpu_torch.smc(ll, regression_parameters(), y, n_parts=4000,
                               n_phi=100, lam=2.0, alpha=0.9, verbose="none",
-                              seed=7000 + r)
+                              seed=7000 + r, device="cpu")
             for r in range(4)]
 
 
@@ -168,7 +168,8 @@ def test_as_estimation_posterior_within_4_std():
     res = smc_tpu_torch.smc(
         model.loglike_batched, tas.an_schorfheide_parameters(),
         tas.load_as_data(), batched=True, n_parts=400, n_phi=100, lam=2.0,
-        resampling_method="systematic", verbose="none", seed=42)
+        resampling_method="systematic", verbose="none", seed=42,
+        device="cpu")
     mu, sd = res.posterior_mean(), res.posterior_std()
     z = np.abs(mu - tas.TRUE_PARAMS) / np.maximum(sd, 1e-9)
     assert np.all(z < 4.0), dict(zip(res.para_names, z))
@@ -182,14 +183,14 @@ def test_same_seed_runs_are_bitwise_equal():
     ll = make_regression_loglike(x)
     a, b = (smc_tpu_torch.smc(ll, regression_parameters(), y, n_parts=1000,
                               n_phi=30, lam=2.0, alpha=0.9, verbose="none",
-                              seed=3) for _ in range(2))
+                              seed=3, device="cpu") for _ in range(2))
     assert a.log_mdd == b.log_mdd
     assert torch.equal(a.cloud.params, b.cloud.params)
     assert torch.equal(a.cloud.weights, b.cloud.weights)
     np.testing.assert_array_equal(a.W, b.W)
     c = smc_tpu_torch.smc(ll, regression_parameters(), y, n_parts=1000,
                           n_phi=30, lam=2.0, alpha=0.9, verbose="none",
-                          seed=4)
+                          seed=4, device="cpu")
     assert not torch.equal(a.cloud.params, c.cloud.params)
 
 
@@ -202,12 +203,27 @@ def test_unported_paths_raise(kwargs):
     y, x = generate_regression_data(n=10, seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         smc_tpu_torch.smc(make_regression_loglike(x), regression_parameters(),
-                          y, n_parts=10, n_phi=3, **kwargs)
+                          y, n_parts=10, n_phi=3, device="cpu", **kwargs)
 
 
 def test_verbose_low_prints_each_stage(capsys):
     y, x = generate_regression_data(n=50, seed=2)
     smc_tpu_torch.smc(make_regression_loglike(x), regression_parameters(), y,
-                      n_parts=200, n_phi=6, verbose="low", seed=1)
+                      n_parts=200, n_phi=6, verbose="low", seed=1,
+                      device="cpu")
     out = capsys.readouterr().out
     assert out.count("stage ") == 5 and "ESS=" in out
+
+
+def test_default_device_is_the_card():
+    """smc() without `device` runs on the card; without one it raises
+    instead of falling back to the CPU."""
+    y, x = generate_regression_data(n=20, seed=5)
+    call = lambda: smc_tpu_torch.smc(make_regression_loglike(x),
+                                     regression_parameters(), y, n_parts=64,
+                                     n_phi=3, verbose="none", seed=1)
+    if torch.cuda.is_available():
+        assert call().cloud.params.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            call()
