@@ -1,10 +1,17 @@
 #!/usr/bin/env python3
 """GPU smoke run of smc_tpu_torch: build the CUDA kernels, hold them against
-their plain PyTorch versions, then run the An-Schorfheide estimation through
-smc_tpu_torch.smc on the card.
+their plain PyTorch versions, run the An-Schorfheide estimation through
+smc_tpu_torch.smc on the card, then the rest of smc()'s paths:
 
-    python3 chip_smoke.py                 # kernel phase + main path
-    python3 chip_smoke.py --profile DIR   # also profile a second AS run
+  (a) the linear fixture at the JAX package's bench.py configuration;
+  (b) AS with the adaptive schedule;
+  (c) the linear fixture with Metropolis resampling;
+  (d) checkpoint and resume of the linear fixture, bitwise;
+  (e) tempered update and bridge distribution from half the linear data.
+
+    python3 chip_smoke.py                 # all phases
+    python3 chip_smoke.py --profile DIR   # also profile AS, adaptive AS and
+                                          # the linear fixture
 
 Needs one CUDA card and nvcc (the kernels are built from csrc/ at first
 use). Every phase raises on failure and the script exits nonzero; it never
@@ -31,7 +38,20 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 AS_N_PARTS = 16_384
 AS_N_PHI = 100
 REF_LOG_MDD = -1416.22     # JAX package, same data and configuration
+REF_LOG_MDD_ADAPTIVE = -1416.05   # JAX package, adaptive schedule (0.97)
 MDD_TOL = 3.0              # nats
+# the linear fixture at bench.py's configuration; the JAX package's log-MDD
+# over seeds 0-4 on a CPU (tests/torch_linear_band.py) spans
+# [-626.4052, -599.0195]; the gate widens that by 5 nats each side
+LIN_N_PARTS = 32_768
+LIN_CONFIG = dict(n_parts=LIN_N_PARTS, n_phi=120, lam=2.1, n_blocks=3,
+                  n_mh_steps=1, alpha=0.9, resampling_method="systematic",
+                  verbose="none")
+LIN_BAND = (-626.4052078903568 - 5.0, -599.0194509045155 + 5.0)
+LIN_MEAN_TOL = 0.5         # of the exact posterior mean
+AS_CONFIG = dict(batched=True, n_parts=AS_N_PARTS, n_phi=AS_N_PHI, lam=2.0,
+                 n_blocks=1, alpha=0.9, resampling_method="systematic",
+                 verbose="none")
 OK_AGREE_MIN = 0.9999
 XM_RTOL = 1e-10
 LL_RTOL = 1e-9             # over the posterior band (50 nats of the best)
@@ -359,35 +379,30 @@ def kernel_phase(dev):
     ]
 
 
+def as_runner(dev):
+    """A function running the AS-16k estimation on `dev` with AS_CONFIG
+    updated by its kwargs (the model and data made once, outside the
+    runs)."""
+    import smc_tpu_torch
+    from smc_tpu_torch.models import as_dsge
+    model, data = as_dsge.an_schorfheide(), as_dsge.load_as_data()
+    return lambda **kw: smc_tpu_torch.smc(
+        model.loglike_batched, as_dsge.an_schorfheide_parameters(), data,
+        **dict(AS_CONFIG, **kw), device=dev)
+
+
 def main_path(dev):
     import numpy as np
-    import torch
-    import smc_tpu_torch
     from smc_tpu_torch.models import as_dsge
     from smc_tpu_torch.ops import cuda_dsge
 
-    model = as_dsge.an_schorfheide()
-    data = as_dsge.load_as_data()
+    run = as_runner(dev)
     # a 2-stage run first pays the process's one-time costs (CUDA module
     # loading, cuSOLVER and cuBLAS handles, the allocator's first blocks)
-    t0 = time.perf_counter()
-    smc_tpu_torch.smc(model.loglike_batched,
-                      as_dsge.an_schorfheide_parameters(), data,
-                      batched=True, n_parts=AS_N_PARTS, n_phi=3, lam=2.0,
-                      alpha=0.9, verbose="none", seed=1, device=dev)
-    torch.cuda.synchronize()
-    print(f"# warm-up (2 stages, first use in this process) "
-          f"{time.perf_counter() - t0:.4f} s")
-    for k in cuda_dsge.LAUNCHES:
-        cuda_dsge.LAUNCHES[k] = 0
-    t0 = time.perf_counter()
-    res = smc_tpu_torch.smc(
-        model.loglike_batched, as_dsge.an_schorfheide_parameters(), data,
-        batched=True, n_parts=AS_N_PARTS, n_phi=AS_N_PHI, lam=2.0,
-        n_blocks=1, alpha=0.9, resampling_method="systematic",
-        verbose="none", seed=0, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    _, wall = _timed(lambda: run(n_phi=3, seed=1))
+    print(f"# warm-up (2 stages, first use in this process) {wall:.4f} s")
+    _reset_launches()
+    res, wall = _timed(lambda: run(seed=0))
     launches = dict(cuda_dsge.LAUNCHES)
     n_stages = len(res.cloud.tempering_schedule) - 1
     expected = 1 + res.init_rounds + n_stages
@@ -409,58 +424,249 @@ def main_path(dev):
     if not (np.all(np.isfinite(mu)) and np.all(z < 4.0)):
         raise RuntimeError(f"posterior means off: z={z.tolist()}")
     print(f"# AS wall {wall:.4f} s, {1e3 * wall / n_stages:.4f} ms/stage, "
-          f"{AS_N_PARTS * n_stages / wall:.1f} mutations/s")
+          f"{AS_N_PARTS * n_stages / wall:.1f} mutations/s, host reads per "
+          f"stage {res.host_reads / n_stages:.4f}")
     return launches
 
 
-def profile_path(dev, out_dir):
-    """Profile one more AS estimation with torch.profiler: device busy time
-    (the sum of the device-side events: one stream, so they do not overlap)
-    against wall time, and the kernels that take the device's time."""
+def _reset_launches():
+    from smc_tpu_torch.ops import cuda_dsge
+    for k in cuda_dsge.LAUNCHES:
+        cuda_dsge.LAUNCHES[k] = 0
+
+
+def _timed(run):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _linear_gates(name, res, exact, band=True):
+    """Posterior means within LIN_MEAN_TOL of the exact ones; log-MDD equal
+    to the w/W formula, every W column summing to N and, with `band`,
+    log-MDD inside LIN_BAND. Returns the largest mean error."""
+    import numpy as np
+    from smc_tpu_torch import marginal_data_density
+    err = float(np.max(np.abs(res.posterior_mean() - exact["mean"])))
+    mdd_w = marginal_data_density(res.w, res.W)
+    col_err = float(np.max(np.abs(res.W.sum(0) / LIN_N_PARTS - 1.0)))
+    print(f"# {name}: max |mean - exact| {err:.4f} (gate {LIN_MEAN_TOL}); "
+          f"log-MDD {res.log_mdd:.4f} (w/W formula {mdd_w:.4f}, exact "
+          f"evidence {exact['log_evidence']:.2f}); W columns sum to N within "
+          f"{col_err:.2e}; resamples {res.cloud.resamples}")
+    if not err < LIN_MEAN_TOL:
+        raise RuntimeError(f"{name}: posterior means off by {err}")
+    if not (np.isclose(res.log_mdd, mdd_w, rtol=1e-10, atol=0.0)
+            and col_err <= 1e-8):
+        raise RuntimeError(f"{name}: weight bookkeeping disagrees")
+    if band and not LIN_BAND[0] <= res.log_mdd <= LIN_BAND[1]:
+        raise RuntimeError(f"{name}: log-MDD {res.log_mdd} outside the JAX "
+                           f"package's band {LIN_BAND}")
+    return err
+
+
+def linear_phase(dev):
+    """(a) The linear fixture at bench.py's configuration, seed 0, after a
+    2-stage warm-up; the workload of the JAX package's primary metric."""
+    import smc_tpu_torch
+    from smc_tpu_torch.models.linear import (linear_parameters,
+                                             make_linear_loglike,
+                                             generate_linear_data,
+                                             exact_linear_posterior)
+    data, X = generate_linear_data(seed=1793)
+    ll = make_linear_loglike(X)
+    exact = exact_linear_posterior(data, X)
+    cfg = dict(LIN_CONFIG, n_phi=3)
+    _timed(lambda: smc_tpu_torch.smc(ll, linear_parameters(), data, **cfg,
+                                     seed=1, device=dev))
+    res, wall = _timed(lambda: smc_tpu_torch.smc(
+        ll, linear_parameters(), data, **LIN_CONFIG, seed=0, device=dev))
+    n_stages = len(res.cloud.tempering_schedule) - 1
+    _linear_gates("(a) linear fixture", res, exact)
+    print(f"# (a) linear wall {wall:.4f} s, {n_stages} stages, "
+          f"{1e3 * wall / n_stages:.4f} ms/stage, "
+          f"{LIN_N_PARTS * n_stages / wall:.1f} mutations/s, host reads per "
+          f"stage {res.host_reads / n_stages:.4f}")
+    return (data, X, ll, exact), res
+
+
+ADAPTIVE = dict(use_fixed_schedule=False, tempering_target=0.97)
+
+
+def adaptive_phase(dev):
+    """(b) AS-16k with the adaptive schedule; both kernels on this path."""
+    import numpy as np
+    import torch
+    from smc_tpu_torch.models import as_dsge
+    from smc_tpu_torch.ops import cuda_dsge
+    from smc_tpu_torch.ops.schedule import solve_adaptive_phi, fixed_schedule
+
+    run = as_runner(dev)
+    _reset_launches()
+    res, wall = _timed(lambda: run(seed=0, **ADAPTIVE))
+    launches = dict(cuda_dsge.LAUNCHES)
+    sched = np.asarray(res.cloud.tempering_schedule)
+    n_stages = len(sched) - 1
+    expected = 1 + res.init_rounds + n_stages
+    print(f"# (b) adaptive AS: {n_stages} stages (the JAX package took 220), "
+          f"launches {launches} (expected {expected} each), wall "
+          f"{wall:.4f} s, {1e3 * wall / n_stages:.4f} ms/stage, host reads "
+          f"per stage {res.host_reads / n_stages:.4f}")
+    if not (np.all(np.diff(sched) > 0) and sched[-1] == 1.0):
+        raise RuntimeError("adaptive schedule does not rise strictly to 1")
+    if any(v != expected for v in launches.values()):
+        raise RuntimeError("the adaptive path did not go through the kernels "
+                           "once per likelihood call")
+    mu, sd = res.posterior_mean(), res.posterior_std()
+    z = np.abs(mu - as_dsge.TRUE_PARAMS) / np.maximum(sd, 1e-9)
+    print(f"# (b) log-MDD {res.log_mdd:.4f} (JAX package "
+          f"{REF_LOG_MDD_ADAPTIVE}); max |z| vs TRUE_PARAMS {z.max():.3f}")
+    if not abs(res.log_mdd - REF_LOG_MDD_ADAPTIVE) <= MDD_TOL:
+        raise RuntimeError(f"adaptive log-MDD {res.log_mdd} not within "
+                           f"{MDD_TOL} nats of {REF_LOG_MDD_ADAPTIVE}")
+    if not (np.all(np.isfinite(mu)) and np.all(z < 4.0)):
+        raise RuntimeError(f"adaptive posterior means off: z={z.tolist()}")
+    # the solver alone, on the final cloud, from the first schedule entry:
+    # the host and device cost of one stage's advance and bisection
+    c = res.cloud
+    solve = lambda: solve_adaptive_phi(c.loglh, c.weights, c.old_loglh, 0.0,
+                                       fixed_schedule(AS_N_PHI, 2.0), 1, 0.0,
+                                       0.97 * AS_N_PARTS)
+    solve()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        solve()
+    t_host = (time.perf_counter() - t0) / 20
+    torch.cuda.synchronize()
+    t_all = (time.perf_counter() - t0) / 20
+    print(f"# (b) solve_adaptive_phi: {1e3 * t_host:.4f} ms of host time "
+          f"per call (enqueue), {1e3 * t_all:.4f} ms per call to completion "
+          f"(20 calls)")
+
+
+def metropolis_phase(dev, lin):
+    """(c) The linear fixture with Metropolis resampling."""
+    import smc_tpu_torch
+    from smc_tpu_torch.models.linear import linear_parameters
+    data, _, ll, exact = lin
+    res, wall = _timed(lambda: smc_tpu_torch.smc(
+        ll, linear_parameters(), data,
+        **dict(LIN_CONFIG, resampling_method="metropolis"), seed=0,
+        device=dev))
+    n_stages = len(res.cloud.tempering_schedule) - 1
+    _linear_gates("(c) metropolis", res, exact, band=False)
+    capped = [b for b in res.chain_lengths if b > 10_000]
+    print(f"# (c) metropolis: Doeblin chain lengths of the "
+          f"{len(res.chain_lengths)} resample stages {res.chain_lengths}; "
+          f"the 10,000 cap bound on {len(capped)}; wall {wall:.4f} s "
+          f"({1e3 * wall / n_stages:.4f} ms/stage), host reads per stage "
+          f"{res.host_reads / n_stages:.4f}")
+
+
+def _same_run(a, b) -> bool:
+    import numpy as np
+    import torch
+    return (torch.equal(a.cloud.params, b.cloud.params)
+            and torch.equal(a.cloud.weights, b.cloud.weights)
+            and a.log_mdd == b.log_mdd
+            and np.array_equal(a.w, b.w) and np.array_equal(a.W, b.W)
+            and a.cloud.tempering_schedule == b.cloud.tempering_schedule)
+
+
+def checkpoint_phase(dev, lin, res_a):
+    """(d) Save every 20 stages, resume from stage 60: bitwise equal to the
+    uninterrupted run."""
+    import tempfile
+    import smc_tpu_torch
+    from smc_tpu_torch import io as smc_io
+    from smc_tpu_torch.models.linear import linear_parameters
+    data, _, ll, _ = lin
+    with tempfile.TemporaryDirectory() as tmp:
+        savepath = os.path.join(tmp, "linear.npz")
+        full = smc_tpu_torch.smc(ll, linear_parameters(), data, **LIN_CONFIG,
+                                 seed=0, device=dev, savepath=savepath,
+                                 save_intermediate=True,
+                                 intermediate_stage_increment=20)
+        resumed, wall = _timed(lambda: smc_tpu_torch.smc(
+            ll, linear_parameters(), data, **LIN_CONFIG, seed=0, device=dev,
+            continue_intermediate=True,
+            loadpath=smc_io.intermediate_path(savepath, 60)))
+    same_resume, same_a = _same_run(resumed, full), _same_run(full, res_a)
+    print(f"# (d) resume from stage 60 ({wall:.4f} s for stages 61-120): "
+          f"bitwise equal to the uninterrupted run: {same_resume}; the "
+          f"checkpointing run bitwise equal to (a): {same_a}")
+    if not (same_resume and same_a):
+        raise RuntimeError("resume from a checkpoint is not bit-identical")
+
+
+def tempered_phase(dev, lin):
+    """(e) Estimate on the first 50 periods, then update to all 100 with
+    prior weight 0 (tempered update) and 0.5 (bridge distribution)."""
+    import numpy as np
+    import smc_tpu_torch
+    from smc_tpu_torch.models.linear import linear_parameters
+    data, _, ll, exact = lin
+    half = data[:, :50]
+    old = smc_tpu_torch.smc(ll, linear_parameters(), half, **LIN_CONFIG,
+                            seed=0, device=dev)
+    for omega in (0.0, 0.5):
+        res, wall = _timed(lambda: smc_tpu_torch.smc(
+            ll, linear_parameters(), data, **LIN_CONFIG, seed=1, device=dev,
+            old_data=half, old_cloud=old.cloud,
+            tempered_update_prior_weight=omega,
+            log_prob_old_data=old.log_mdd))
+        err = float(np.max(np.abs(res.posterior_mean() - exact["mean"])))
+        print(f"# (e) update with prior weight {omega}: max |mean - exact| "
+              f"{err:.4f} (gate {LIN_MEAN_TOL}); log-MDD {res.log_mdd:.4f} "
+              f"(old data {old.log_mdd:.4f}); wall {wall:.4f} s")
+        if not err < LIN_MEAN_TOL:
+            raise RuntimeError(f"tempered update (omega={omega}) posterior "
+                               f"means off by {err}")
+
+
+def profile_path(out_dir, name, run):
+    """Profile one run with torch.profiler: device busy time (the sum of
+    the device-side events: one stream, so they do not overlap) against
+    wall time, and the kernels that take the device's time; the table goes
+    to DIR/profile_<name>.txt."""
     import torch
     from torch.profiler import profile, ProfilerActivity
-    import smc_tpu_torch
-    from smc_tpu_torch.models import as_dsge
+    from torch.autograd import DeviceType
 
-    model = as_dsge.an_schorfheide()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        smc_tpu_torch.smc(
-            model.loglike_batched, as_dsge.an_schorfheide_parameters(),
-            as_dsge.load_as_data(), batched=True, n_parts=AS_N_PARTS,
-            n_phi=AS_N_PHI, lam=2.0, n_blocks=1, alpha=0.9,
-            resampling_method="systematic", verbose="none", seed=0,
-            device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
+        _, wall = _timed(run)
     kernels = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             t, n = kernels.get(e.name, (0.0, 0))
             kernels[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     busy = sum(t for t, _ in kernels.values()) / 1e6
-    print(f"# profile: wall {wall:.4f} s (under the profiler), device busy "
-          f"{busy:.4f} s, idle share {1.0 - busy / wall:.4f}")
+    print(f"# profile {name}: wall {wall:.4f} s (under the profiler), device "
+          f"busy {busy:.4f} s, idle share {1.0 - busy / wall:.4f}")
     rows = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_as16k.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
         f.write(f"{smi_line()}\nwall {wall} s, device busy {busy} s\n")
-        for name, (t, n) in rows:
-            f.write(f"{t / 1e3:12.3f} ms {n:7d}x  {name}\n")
+        for kname, (t, n) in rows:
+            f.write(f"{t / 1e3:12.3f} ms {n:7d}x  {kname}\n")
         f.write(prof.key_averages().table(sort_by="cpu_time_total",
                                           row_limit=40))
-    for name, (t, n) in rows[:12]:
-        print(f"# profile {t / 1e3:10.3f} ms {n:6d}x  {name[:90]}")
+    for kname, (t, n) in rows[:8]:
+        print(f"# profile {name} {t / 1e3:10.3f} ms {n:6d}x  {kname[:80]}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="after the main path, profile another AS run and "
-                         "write the table to DIR")
+                    help="also profile one more run each of AS-16k, the "
+                         "linear fixture and adaptive AS-16k, and write "
+                         "their tables to DIR")
     args = ap.parse_args(argv)
 
     sys.path.insert(0, HERE)
@@ -487,8 +693,21 @@ def main(argv=None) -> int:
 
     kernels = kernel_phase(dev)
     launches = main_path(dev)
+    lin, res_a = linear_phase(dev)
+    adaptive_phase(dev)
     if args.profile:
-        profile_path(dev, args.profile)
+        import smc_tpu_torch
+        from smc_tpu_torch.models.linear import linear_parameters
+        run_as = as_runner(dev)
+        profile_path(args.profile, "as16k", lambda: run_as(seed=0))
+        profile_path(args.profile, "as16k_adaptive",
+                     lambda: run_as(seed=0, **ADAPTIVE))
+        profile_path(args.profile, "linear32k", lambda: smc_tpu_torch.smc(
+            lin[2], linear_parameters(), lin[0], **LIN_CONFIG, seed=0,
+            device=dev))
+    metropolis_phase(dev, lin)
+    checkpoint_phase(dev, lin, res_a)
+    tempered_phase(dev, lin)
     for k, key in zip(kernels, ("re", "kalman")):
         k["launches"] = launches[key]
     print(json.dumps({"kernels": kernels}))

@@ -50,6 +50,38 @@ class Distribution:
     def code(self) -> int:
         return FAMILY_CODES[self.family]
 
+    def logpdf(self, x) -> torch.Tensor:
+        return logpdf_family(self.code, self.a, self.b, x)
+
+    def sample(self, draws, shape=()) -> torch.Tensor:
+        """Draws of `shape` through the draws interface, on its device."""
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        n = math.prod(shape)
+        out = sample_family(np.array([self.code]), np.array([self.a]),
+                            np.array([self.b]), draws, n, device=draws.device)
+        return out.reshape(shape)
+
+    def mean(self) -> float:
+        a, b = self.a, self.b
+        if self.family in ("normal", "truncated_normal"):
+            return a
+        if self.family == "uniform":
+            return (a + b) / 2.0
+        if self.family == "gamma":
+            return a * b
+        if self.family == "beta":
+            return a / (a + b)
+        if self.family == "inverse_gamma":
+            return b / (a - 1.0) if a > 1 else np.nan
+        if self.family == "root_inverse_gamma":
+            # E[sigma] for nu tau^2 / sigma^2 ~ chi2(nu)
+            nu, tau = a, b
+            if nu > 1:
+                return (math.sqrt(nu * tau ** 2 / 2.0)
+                        * math.gamma((nu - 1) / 2.0) / math.gamma(nu / 2.0))
+            return np.nan
+        return np.nan
+
 
 def Normal(mu: float, sigma: float) -> Distribution:
     return Distribution("normal", float(mu), float(sigma))
@@ -127,6 +159,55 @@ def _root_inverse_gamma_logpdf(nu, tau, x):
           - (nu + 1.0) * torch.log(xs)
           - half_nu * tau * tau / (xs * xs))
     return torch.where(ok, lp, _NEG_INF)
+
+
+class DegenerateMvNormal:
+    """Multivariate normal that tolerates a rank-deficient covariance.
+
+    logpdf uses the eigendecomposition pseudo-inverse: directions with
+    (near-)zero eigenvalue contribute neither to the quadratic form nor the
+    log-determinant, and the rank replaces the dimension in the
+    normalization. `rand` draws in the span of the kept eigenvectors, with
+    the normals taken from a draws object."""
+
+    def __init__(self, mu, sigma, tol: float = 1e-12, device="cuda"):
+        self.mu = torch.as_tensor(mu, dtype=torch.float64, device=device)
+        self.sigma = torch.as_tensor(sigma, dtype=torch.float64,
+                                     device=self.mu.device)
+        lam, U = torch.linalg.eigh(self.sigma)
+        lam_max = torch.clamp(torch.max(lam), min=0.0)
+        keep = lam > tol * torch.clamp(lam_max, min=1e-300)
+        safe = torch.where(keep, lam, 1.0)
+        self._U = U
+        self._sqrt_lam = torch.where(keep, torch.sqrt(safe), 0.0)
+        self._inv_lam = torch.where(keep, 1.0 / safe, 0.0)
+        self.rank = keep.sum().to(torch.float64)
+        self._logdet = torch.sum(torch.where(keep, torch.log(safe), 0.0))
+
+    def logpdf(self, x) -> torch.Tensor:
+        diff = torch.as_tensor(x, dtype=torch.float64,
+                               device=self.mu.device) - self.mu
+        z = diff @ self._U
+        quad = torch.sum(z * z * self._inv_lam, dim=-1)
+        return -0.5 * (self.rank * _LOG_2PI + self._logdet + quad)
+
+    def rand(self, draws, shape=()) -> torch.Tensor:
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        eps = draws.normal(shape + tuple(self.mu.shape))
+        return self.mu + (eps * self._sqrt_lam) @ self._U.T
+
+    sample = rand
+
+    def cov(self) -> torch.Tensor:
+        return self.sigma
+
+
+def get_cov(d):
+    """Covariance of a DegenerateMvNormal or anything exposing .cov()/.sigma."""
+    if hasattr(d, "cov"):
+        c = d.cov
+        return c() if callable(c) else c
+    return d.sigma
 
 
 _LOGPDFS = {

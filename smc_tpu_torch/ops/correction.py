@@ -33,6 +33,16 @@ def log_incremental_weights(loglh, old_loglh, phi_n, phi_n1,
     return -d * mix + d * loglh
 
 
+def incremental_weights(loglh, old_loglh, phi_n, phi_n1,
+                        tempered_update_prior_weight: float = 0.0,
+                        log_prob_old_data: float = 0.0):
+    """w_tilde per particle: the raw exponential of log_incremental_weights
+    (may under- or overflow; `correct` gives the stable quantities)."""
+    return torch.exp(log_incremental_weights(
+        loglh, old_loglh, phi_n, phi_n1, tempered_update_prior_weight,
+        log_prob_old_data))
+
+
 def correct(loglh, old_loglh, weights, phi_n, phi_n1,
             tempered_update_prior_weight: float = 0.0,
             log_prob_old_data: float = 0.0):

@@ -1,10 +1,10 @@
-"""Initialization: prior draws with redraw-until-valid (port of
-smc_tpu/ops/initialization.py, `initial_draw`).
+"""Initialization (port of smc_tpu/ops/initialization.py): prior draws with
+redraw-until-valid, and the likelihood re-evaluation of a tempered update.
 
-Masked redraw rounds on the host: draw all N, evaluate them in one batched
-likelihood call, then redraw and evaluate only the invalid rows, until every
-particle has a finite likelihood and prior. Each round is one likelihood
-call and one host read of the invalid count.
+`initial_draw` runs masked redraw rounds on the host: draw all N, evaluate
+them in one batched likelihood call, then redraw and evaluate only the
+invalid rows, until every particle has a finite likelihood and prior. Each
+round is one likelihood call and one host read of the invalid count.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import Callable, Tuple
 import torch
 
 from smc_tpu_torch.cloud import Cloud
+from smc_tpu_torch.utils.misc import scrub_loglh
 
 
 def _eval_batch(space, loglike_batched, draws):
@@ -49,3 +50,32 @@ def initial_draw(draws, space, loglike_batched: Callable, n_parts: int,
     cloud = Cloud.create(space.n_para, n_parts, device=device)
     cloud.params, cloud.loglh, cloud.logprior = params, loglh, logprior
     return cloud, rounds
+
+
+def one_draw(draws, space, loglike_batched: Callable, max_rounds: int = 10000,
+             device="cuda"):
+    """One valid prior draw: (draw [P], loglh, logprior), an N=1
+    initial_draw."""
+    cloud, _ = initial_draw(draws, space, loglike_batched, 1, device=device,
+                            max_rounds=max_rounds)
+    return cloud.params[0], cloud.loglh[0], cloud.logprior[0]
+
+
+def initialize_likelihoods(cloud: Cloud, space,
+                           loglike_batched: Callable) -> Cloud:
+    """Tempered-update set-up: loglh moves to old_loglh, then loglh and
+    logprior are evaluated for every particle on the new data (a non-finite
+    loglh becomes -inf). Updates and returns `cloud`."""
+    cloud.old_loglh = cloud.loglh
+    cloud.logprior = space.log_prior(cloud.params)
+    cloud.loglh = scrub_loglh(loglike_batched(cloud.params))
+    return cloud
+
+
+def draw_likelihood(space, loglike_batched: Callable, draws, device="cuda"):
+    """(loglh, logprior) at the given parameter draws [N, P], moved to
+    `device`; a non-finite loglh becomes -inf."""
+    draws = torch.as_tensor(draws, dtype=torch.float64, device=device)
+    logprior = space.log_prior(draws)
+    loglh = scrub_loglh(loglike_batched(draws))
+    return loglh, logprior

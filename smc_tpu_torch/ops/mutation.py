@@ -18,12 +18,23 @@ pseudo-inverse that tolerates rank deficiency) is computed once per block,
 everything else is batched over [N, ...]. Block columns are read and written
 with index_select/index_copy. Draws per block, in order: normal eps [N, k],
 the mixture component (categorical, when alpha < 1), the uniform [N].
+
+In a tempered update (bridging) the proposals' likelihood on the old data
+comes from `old_loglike_batched`; without it, it is 0.
+
+The single-particle API helpers at the end (`mutation`,
+`mvnormal_mixture_draw`, `compute_proposal_densities`, the block
+generators) follow the JAX package's. `compute_proposal_densities` takes
+each mixture's log-sum-exp over its own three terms (torch.logsumexp), as
+the JAX helper does; the batched step shares one max between the two
+mixtures. The two forms agree while the mixture terms lie within ~745 nats
+of each other and may differ beyond, where exp underflows.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -77,11 +88,13 @@ def _diag_logpdf(diff, diag_sd, c):
 
 
 def make_mutation_step(space, loglike_batched: Callable, n_blocks: int,
-                       n_mh_steps: int, alpha: float):
+                       n_mh_steps: int, alpha: float,
+                       old_loglike_batched: Optional[Callable] = None):
     """Returns mutation_step(draws, params, loglh, logprior, old_loglh,
     mean_free, cov_free, perm, c, phi_n, phi_n1)
-    -> (params, loglh, logprior, old_loglh, accept_frac). Without bridging
-    (not ported yet) the old-data likelihood of a proposal is 0."""
+    -> (params, loglh, logprior, old_loglh, accept_frac).
+    `old_loglike_batched` gives the proposals' likelihood on the old data
+    in a tempered update; without it that likelihood is 0."""
     n_free = space.n_free
     sizes = block_sizes(n_free, n_blocks)
     offsets = np.concatenate([[0], np.cumsum(sizes)])[:-1]
@@ -145,7 +158,10 @@ def make_mutation_step(space, loglike_batched: Callable, n_blocks: int,
                 like_new = scrub_loglh(loglike_batched(params_new))
                 prior_new = torch.where(torch.isneginf(like_new),
                                         float("-inf"), prior_new)
-                like_old_new = torch.zeros_like(like_new)
+                if old_loglike_batched is not None:
+                    like_old_new = scrub_loglh(old_loglike_batched(params_new))
+                else:
+                    like_old_new = torch.zeros_like(like_new)
 
                 log_eta = (phi_n * (like_new - loglh)
                            + (1.0 - phi_n) * (like_old_new - old_loglh)
@@ -162,3 +178,103 @@ def make_mutation_step(space, loglike_batched: Callable, n_blocks: int,
         return params, loglh, logprior, old_loglh, accept_count / float(n_free)
 
     return mutation_step
+
+
+# --- single-particle API helpers --------------------------------------------
+
+
+def generate_free_blocks(draws, n_free_para: int, n_blocks: int):
+    """A random partition of the free-parameter ordinals into ~equal blocks
+    (a permutation cut at block_sizes): a list of int64 tensors."""
+    perm = draws.permutation(n_free_para)
+    sizes = block_sizes(n_free_para, n_blocks)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])[:-1]
+    return [perm[int(o):int(o) + k] for o, k in zip(offsets, sizes)]
+
+
+def generate_all_blocks(blocks_free, free_para_inds):
+    """Free-ordinal blocks mapped to full-parameter indices."""
+    free_para_inds = torch.as_tensor(np.asarray(free_para_inds),
+                                     device=blocks_free[0].device)
+    return [free_para_inds[b] for b in blocks_free]
+
+
+def generate_param_blocks(draws, n_params: int, n_blocks: int):
+    """A random ~equal partition of 0..n_params-1, each block sorted."""
+    if n_blocks == 1:
+        return [torch.arange(n_params, device=draws.device)]
+    return [torch.sort(b).values
+            for b in generate_free_blocks(draws, n_params, n_blocks)]
+
+
+def mvnormal_mixture_draw(draws, theta_old, mean, cov, c: float = 1.0,
+                          alpha: float = 1.0):
+    """One draw from the 3-component mixture proposal around theta_old [k].
+    Draws, in order: normal eps [k], the component (categorical, 1)."""
+    f64 = lambda x: torch.as_tensor(x, dtype=torch.float64,
+                                    device=draws.device)
+    theta_old, mean, cov = f64(theta_old), f64(mean), f64(cov)
+    k = theta_old.shape[0]
+    U, sqrt_lam, _, _, _ = _deg_factor(cov)
+    diag_sd = torch.sqrt(torch.clamp(torch.diagonal(cov), min=0.0))
+    eps = draws.normal((k,))
+    comp = draws.categorical([alpha, (1 - alpha) / 2, (1 - alpha) / 2], 1)[0]
+    full_step = c * ((eps * sqrt_lam) @ U.T)
+    center = torch.where(comp == 2, mean, theta_old)
+    stepv = torch.where(comp == 1, c * eps * diag_sd, full_step)
+    return center + stepv
+
+
+def compute_proposal_densities(para_draw, para_subset, mean, cov,
+                               alpha: float = 1.0, c: float = 1.0,
+                               catch_near_zeros: bool = False,
+                               tol: float = 1e-6):
+    """(q0, q1): log densities of the mixture at the current point given the
+    proposal and at the proposal given the current point. With
+    catch_near_zeros, covariance diagonal entries in (-tol, 0) become 0."""
+    f64 = lambda x: torch.as_tensor(x, dtype=torch.float64)
+    para_draw, para_subset = f64(para_draw), f64(para_subset)
+    mean, cov = f64(mean), f64(cov)
+    if catch_near_zeros:
+        diag = torch.diagonal(cov)
+        fixed = torch.where((diag < 0) & (diag > -tol), 0.0, diag)
+        cov = cov - torch.diag(diag) + torch.diag(fixed)
+    U, _, inv_lam, rank, logdet = _deg_factor(cov)
+    diag_sd = torch.sqrt(torch.clamp(torch.diagonal(cov), min=0.0))
+    c = torch.as_tensor(c, dtype=torch.float64, device=cov.device)
+    log_alpha = math.log(alpha) if alpha > 0 else -math.inf
+    log_rest = math.log((1 - alpha) / 2) if alpha < 1 else -math.inf
+    lp_sym = _deg_logpdf(para_draw - para_subset, U, inv_lam, rank, logdet, c)
+    lp_diag = _diag_logpdf(para_draw - para_subset, diag_sd, c)
+    lp_bar_cur = _deg_logpdf(para_subset - mean, U, inv_lam, rank, logdet, c)
+    lp_bar_prop = _deg_logpdf(para_draw - mean, U, inv_lam, rank, logdet, c)
+    q0 = torch.logsumexp(torch.stack([log_alpha + lp_sym, log_rest + lp_diag,
+                                      log_rest + lp_bar_cur]), dim=0)
+    q1 = torch.logsumexp(torch.stack([log_alpha + lp_sym, log_rest + lp_diag,
+                                      log_rest + lp_bar_prop]), dim=0)
+    q0 = torch.where(torch.isposinf(q0) & torch.isposinf(q1), 0.0, q0)
+    return q0, q1
+
+
+def mutation(draws, space, loglike, data, particle_params, particle_loglh,
+             particle_logprior, particle_old_loglh, mean_free, cov_free,
+             perm, c, alpha, n_mh_steps, n_blocks, phi_n, phi_n1,
+             old_loglike=None, old_data=None):
+    """Mutate one particle: the batched step at N = 1, with the per-theta
+    `loglike(theta, data)` vmapped. Returns (params, loglh, logprior,
+    old_loglh, accept_frac) of the particle."""
+    dev = draws.device
+    f64 = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+    ll = torch.func.vmap(lambda t: loglike(t, data))
+    oll = None
+    if old_loglike is not None and old_data is not None:
+        oll = torch.func.vmap(lambda t: old_loglike(t, old_data))
+    step = make_mutation_step(space, ll, n_blocks, n_mh_steps, alpha, oll)
+    p, l, lp, ol, af = step(
+        draws, f64(particle_params)[None, :], f64(particle_loglh).reshape(1),
+        f64(particle_logprior).reshape(1), f64(particle_old_loglh).reshape(1),
+        f64(mean_free), f64(cov_free),
+        perm.to(dev) if torch.is_tensor(perm) else
+        torch.as_tensor(np.array(perm, np.int64), device=dev), c, phi_n,
+        phi_n1)
+    return p[0], l[0], lp[0], ol[0], af[0]

@@ -8,6 +8,10 @@ are a few masked tensor ops. Bounds violations give -inf, never an exception.
 The metadata lives in numpy arrays; `ParamSpace.from_numpy` rebuilds a space
 from those arrays alone, so a test can build the port's space from the JAX
 package's numbers.
+
+The sampler works in the model (untransformed) space. The transform tags
+(`Untransformed`, `SquareRoot`, `Exponential`) are carried for API parity and
+for users who want an unconstrained space (`ParamSpace.to_real`/`from_real`).
 """
 
 from __future__ import annotations
@@ -25,6 +29,39 @@ ARRAY_FIELDS = ("names", "values", "lo", "hi", "fixed", "prior_family",
                 "prior_a", "prior_b", "_tn_logz")
 
 
+class Untransformed:
+    """Identity map between model space and unconstrained space."""
+
+    def to_real(self, x, lo, hi):
+        return x
+
+    def from_real(self, y, lo, hi):
+        return y
+
+
+class SquareRoot:
+    """For interval-bounded parameters: real = z / sqrt(1 - z^2) with
+    z = (x - (a+b)/2) / ((b-a)/2)."""
+
+    def to_real(self, x, lo, hi):
+        z = (x - (lo + hi) / 2.0) / ((hi - lo) / 2.0)
+        return z / torch.sqrt(1.0 - z * z)
+
+    def from_real(self, y, lo, hi):
+        z = y / torch.sqrt(1.0 + y * y)
+        return (lo + hi) / 2.0 + (hi - lo) / 2.0 * z
+
+
+class Exponential:
+    """For lower-bounded parameters: real = log(x - lo), model = lo + exp(real)."""
+
+    def to_real(self, x, lo, hi):
+        return torch.log(x - lo)
+
+    def from_real(self, y, lo, hi):
+        return lo + torch.exp(y)
+
+
 @dataclasses.dataclass
 class Parameter:
     """One model parameter. `regimes` maps an attribute ("value",
@@ -34,6 +71,8 @@ class Parameter:
     name: str
     value: float
     valuebounds: Tuple[float, float] = (-np.inf, np.inf)
+    transform_bounds: Tuple[float, float] = (-np.inf, np.inf)
+    transform: object = dataclasses.field(default_factory=Untransformed)
     prior: Optional[Distribution] = None
     fixed: bool = False
     regimes: Optional[Dict[str, Dict[int, object]]] = None
@@ -49,11 +88,17 @@ class Parameter:
         return default
 
 
-def parameter(name, value, valuebounds=(-np.inf, np.inf), prior=None,
+def parameter(name, value, valuebounds=(-np.inf, np.inf),
+              transform_bounds=None, transform=None, prior=None,
               fixed=False, regimes=None) -> Parameter:
-    return Parameter(name=name, value=float(value),
-                     valuebounds=tuple(valuebounds), prior=prior,
-                     fixed=fixed, regimes=regimes)
+    """A Parameter; transform_bounds default to valuebounds and transform to
+    Untransformed()."""
+    return Parameter(
+        name=name, value=float(value), valuebounds=tuple(valuebounds),
+        transform_bounds=(tuple(transform_bounds) if transform_bounds
+                          else tuple(valuebounds)),
+        transform=transform if transform is not None else Untransformed(),
+        prior=prior, fixed=fixed, regimes=regimes)
 
 
 class ParamSpace:
@@ -177,6 +222,46 @@ class ParamSpace:
             q = torch.clamp(zlo + u * (zhi - zlo), 1e-15, 1.0 - 1e-15)
             out.index_copy_(1, idx, mu + sig * torch.special.ndtri(q))
         return torch.where(t["fixed"], t["values"], out)
+
+    # -- transforms (unused by the sampler itself) ---------------------------
+
+    def to_real(self, theta: torch.Tensor) -> torch.Tensor:
+        return torch.stack([tr.to_real(theta[..., j], lo, hi) for j, (tr, lo, hi)
+                            in enumerate(self._column_specs())], dim=-1)
+
+    def from_real(self, y: torch.Tensor) -> torch.Tensor:
+        return torch.stack([tr.from_real(y[..., j], lo, hi) for j, (tr, lo, hi)
+                            in enumerate(self._column_specs())], dim=-1)
+
+    def _column_specs(self):
+        """(transform, lo, hi) per flat column: the parameters, then one per
+        appended regime column."""
+        spec = lambda p: (p.transform, p.transform_bounds[0],
+                          p.transform_bounds[1])
+        specs = [spec(p) for p in self.parameters]
+        if self.regime_switching:
+            specs += [spec(p) for p in self.parameters
+                      for _ in range(2, p.n_regimes() + 1)]
+        return specs
+
+    def regime_matrix(self) -> np.ndarray:
+        """[n_base_params, max_regimes] column-index map: entry (i, r-1) is
+        the flat column holding parameter i's regime-r value (regime 1 -> i),
+        so a likelihood picks per-regime values with one gather."""
+        n_base = len(self.parameters)
+        max_r = max(p.n_regimes() for p in self.parameters)
+        out = np.zeros((n_base, max_r), np.int32)
+        col = n_base
+        for i, p in enumerate(self.parameters):
+            out[i, :] = i
+            for r in range(2, p.n_regimes() + 1):
+                if self.regime_switching:
+                    out[i, r - 1] = col
+                    col += 1
+        return out
+
+    def __len__(self) -> int:
+        return self.n_para
 
     def __repr__(self) -> str:
         return (f"ParamSpace(n_para={self.n_para}, n_free={self.n_free}, "

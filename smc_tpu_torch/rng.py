@@ -1,11 +1,12 @@
 """The draws interface: every random number the port consumes goes through it.
 
 Stage functions never touch a generator directly; they ask a draws object for
-`uniform`, `normal`, `categorical`, `permutation` or `standard_gamma`. Two
-implementations:
+`uniform`, `normal`, `integers`, `categorical`, `permutation` or
+`standard_gamma`. Two implementations:
 
 * `TorchDraws` wraps one explicit `torch.Generator` on the tensors' device
-  (a CUDA generator for CUDA tensors), so a run is reproducible from its seed.
+  (a CUDA generator for CUDA tensors), so a run is reproducible from its seed;
+  `get_state`/`set_state` carry the generator across a checkpoint.
 * `ReplayDraws` serves recorded numpy arrays in FIFO order. Tests record the
   draws the JAX package made (its PRNG differs from torch's) and replay them
   here, which makes one stage of the port comparable to one stage of the
@@ -48,6 +49,11 @@ class TorchDraws:
         return torch.randn(_shape(shape), generator=self.generator, dtype=_F64,
                            device=self.device)
 
+    def integers(self, low: int, high: int, shape) -> torch.Tensor:
+        """Uniform integers in [low, high), int64 of `shape`."""
+        return torch.randint(int(low), int(high), _shape(shape),
+                             generator=self.generator, device=self.device)
+
     def categorical(self, probs, n: int) -> torch.Tensor:
         """n iid indices into `probs` (need not be normalized), int64 [n],
         by inverse CDF: first index whose cumulative probability exceeds u."""
@@ -65,6 +71,13 @@ class TorchDraws:
         """Gamma(alpha, 1) draws, one per entry of `alpha` (f64)."""
         a = torch.as_tensor(alpha, dtype=_F64, device=self.device).contiguous()
         return torch._standard_gamma(a, generator=self.generator)
+
+    def get_state(self) -> np.ndarray:
+        """The generator's state as a uint8 array (what a checkpoint keeps)."""
+        return self.generator.get_state().numpy().copy()
+
+    def set_state(self, state) -> None:
+        self.generator.set_state(torch.as_tensor(np.asarray(state, np.uint8)))
 
 
 class ReplayDraws:
@@ -97,6 +110,10 @@ class ReplayDraws:
 
     def normal(self, shape) -> torch.Tensor:
         return self._f64(self._next("normal", _shape(shape)))
+
+    def integers(self, low: int, high: int, shape) -> torch.Tensor:
+        v = self._next("integers", _shape(shape))
+        return torch.as_tensor(v.astype(np.int64), device=self.device)
 
     def categorical(self, probs, n: int) -> torch.Tensor:
         v = self._next("categorical", (int(n),))

@@ -1,42 +1,57 @@
 """The SMC recursion: correction -> selection -> mutation over a tempering
-schedule (port of smc_tpu/smc.py: the stage body and the host-loop
-recursion with the fixed schedule).
+schedule (port of smc_tpu/smc.py: the stage body and the host stage loop,
+with the fixed or the adaptive schedule, tempered updates and bridge
+distributions, checkpoints and resume).
 
 The stage loop runs on the host. Each stage makes one explicit host read:
 the ESS and the log-MDD increment, fetched together right after the
-correction, which the host `if` on ESS < threshold needs. Everything else
-stays on the device: the step size c is updated there from the previous
-stage's mean acceptance, and the last acceptance mean and the w/W weight
-columns are fetched once, at the end (with verbose="low", each stage also
-reads what its line prints). On a GPU, `torch.linalg.eigh` in the mutation
-also waits for the device, to check its status.
+correction, which the host `if` on ESS < threshold needs. In adaptive mode
+the stage's phi_n, j and phi_prop come from `solve_adaptive_phi` as device
+scalars and are fetched in that same read. Everything else stays on the
+device: the step size c is updated there from the previous stage's mean
+acceptance, and the weight columns are fetched once, at the end. Reads that
+are made only on some stages: a Metropolis resample reads its chain length;
+verbose "low"/"high" read c and the acceptance for the stage line ("high"
+also the parameter table); a checkpoint reads c, the acceptance and the w/W
+columns. On a GPU, `torch.linalg.eigh` in the mutation also waits for the
+device, to check its status.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import time
+import math
+import os
+import warnings
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
-from smc_tpu_torch.cloud import (Cloud, weighted_mean, weighted_cov,
-                                 weighted_std)
+from smc_tpu_torch import diagnostics as diag
+from smc_tpu_torch import io as smc_io
+from smc_tpu_torch.cloud import (Cloud, ARRAY_FIELDS, weighted_mean,
+                                 weighted_cov, weighted_std)
 from smc_tpu_torch.params import ParamSpace
 from smc_tpu_torch.rng import TorchDraws
 from smc_tpu_torch.ops.correction import correct
-from smc_tpu_torch.ops.schedule import fixed_schedule
-from smc_tpu_torch.ops.resample import resample as resample_indices, VALID_METHODS
+from smc_tpu_torch.ops.schedule import fixed_schedule, solve_adaptive_phi
+from smc_tpu_torch.ops.resample import (resample as resample_indices,
+                                        metropolis_chain_length,
+                                        VALID_METHODS)
 from smc_tpu_torch.ops.mutation import make_mutation_step
-from smc_tpu_torch.ops.initialization import initial_draw
+from smc_tpu_torch.ops.initialization import (initial_draw,
+                                              initialize_likelihoods)
 
 
 @dataclasses.dataclass
 class SMCResult:
     """Estimation output: the final cloud, the incremental (w) and
     normalized (W) weight matrices [N, n_stages+1] as numpy, the log marginal
-    data density, and the number of redraw rounds the initialization took."""
+    data density, the redraw rounds of the initialization, the explicit
+    host reads the stage loop made, and the Doeblin length (before the cap)
+    of each Metropolis resample."""
 
     cloud: Cloud
     w: Optional[np.ndarray]
@@ -45,12 +60,26 @@ class SMCResult:
     para_names: List[str]
     space: ParamSpace
     init_rounds: int = 0
+    host_reads: int = 0
+    chain_lengths: List[int] = dataclasses.field(default_factory=list)
 
     def posterior_mean(self) -> np.ndarray:
         return weighted_mean(self.cloud).cpu().numpy()
 
     def posterior_std(self) -> np.ndarray:
         return weighted_std(self.cloud).cpu().numpy()
+
+
+def marginal_data_density(w: np.ndarray, W: np.ndarray) -> float:
+    """log-MDD from the saved weight matrices: sum_n log((1/N) sum_i
+    W_{i,n-1} w~_{i,n}). `w` holds the raw incremental weights, which can
+    underflow in extreme configurations; SMCResult.log_mdd is accumulated
+    from the shift-invariant per-stage increments instead."""
+    n = w.shape[0]
+    out = 0.0
+    for s in range(1, w.shape[1]):
+        out += np.log(np.sum(W[:, s - 1] * w[:, s]) / n)
+    return float(out)
 
 
 def _logistic_c_update(c, accept: torch.Tensor, target: float):
@@ -60,27 +89,47 @@ def _logistic_c_update(c, accept: torch.Tensor, target: float):
 
 
 def make_stage_core(space, loglike_batched, n_blocks, n_mh_steps, alpha,
-                    resampling_method, threshold):
+                    resampling_method, threshold,
+                    tempered_update_prior_weight=0.0, log_prob_old_data=0.0,
+                    old_loglike_batched=None):
     """The stage body:
       stage(draws, params, loglh, logprior, old_loglh, weights,
-            phi_n, phi_n1, c)
+            phi_n, phi_n1, c, read_along=())
         -> (params, loglh, logprior, old_loglh, weights, accept,
-            inc_w, W_col, ess, did_resample, accept_mean, mdd_inc)
+            inc_w, W_col, ess, did_resample, accept_mean, mdd_inc, info)
     ess and mdd_inc are host floats (the stage's one host read) and
-    did_resample a bool; everything else stays on the device. Draws, in
-    order: the resampling uniform(s) only when the stage resamples, the
-    block permutation, then the mutation's draws."""
+    did_resample a bool; `read_along` are f64 device scalars fetched in the
+    same read, returned as the host list info["read"]. A Metropolis
+    resample puts its Doeblin chain length (before the cap) in
+    info["chain_length"]. Everything else stays on the device. A stage
+    whose ESS is NaN returns after the correction (smc() raises).
+    Draws, in order: the resampling draws only when the stage resamples,
+    the block permutation, then the mutation's draws."""
     mutation_step = make_mutation_step(space, loglike_batched, n_blocks,
-                                       n_mh_steps, alpha)
+                                       n_mh_steps, alpha, old_loglike_batched)
+    omega = tempered_update_prior_weight
 
     def stage(draws, params, loglh, logprior, old_loglh, weights,
-              phi_n, phi_n1, c):
+              phi_n, phi_n1, c, read_along=()):
         inc_w, norm_w, ess, mdd_inc = correct(loglh, old_loglh, weights,
-                                              phi_n, phi_n1)
-        ess, mdd_inc = torch.stack([ess, mdd_inc]).tolist()
+                                              phi_n, phi_n1, omega,
+                                              log_prob_old_data)
+        ess, mdd_inc, *read = torch.stack([ess, mdd_inc,
+                                           *read_along]).tolist()
+        info = {"read": read}
+        if math.isnan(ess):
+            nan = torch.full((), float("nan"), dtype=torch.float64,
+                             device=params.device)
+            return (params, loglh, logprior, old_loglh, norm_w,
+                    torch.zeros_like(loglh), inc_w, norm_w, ess, False, nan,
+                    mdd_inc, info)
         did_resample = ess < threshold
         if did_resample:
-            idx = resample_indices(draws, norm_w, method=resampling_method)
+            n_iter = None
+            if resampling_method == "metropolis":
+                n_iter, info["chain_length"] = metropolis_chain_length(norm_w)
+            idx = resample_indices(draws, norm_w, method=resampling_method,
+                                   n_iter=n_iter)
             params, loglh = params[idx], loglh[idx]
             logprior, old_loglh = logprior[idx], old_loglh[idx]
             weights = torch.ones_like(norm_w)
@@ -95,7 +144,7 @@ def make_stage_core(space, loglike_batched, n_blocks, n_mh_steps, alpha,
             draws, params, loglh, logprior, old_loglh, mu, cov, perm, c,
             phi_n, phi_n1)
         return (params, loglh, logprior, old_loglh, weights, accept, inc_w,
-                weights, ess, did_resample, torch.mean(accept), mdd_inc)
+                weights, ess, did_resample, torch.mean(accept), mdd_inc, info)
 
     return stage
 
@@ -103,6 +152,15 @@ def make_stage_core(space, loglike_batched, n_blocks, n_mh_steps, alpha,
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to smc_tpu_torch yet (ROADMAP.md, {item})")
+
+
+def _on_device(cloud: Cloud, device) -> Cloud:
+    """A copy of `cloud` with its arrays on `device` (the caller's cloud is
+    left as it was)."""
+    return dataclasses.replace(
+        cloud, tempering_schedule=list(cloud.tempering_schedule),
+        ESS=list(cloud.ESS),
+        **{f: getattr(cloud, f).to(device) for f in ARRAY_FIELDS})
 
 
 def smc(loglikelihood: Callable,
@@ -121,119 +179,307 @@ def smc(loglikelihood: Callable,
         alpha: float = 1.0,
         target: float = 0.25,
         use_fixed_schedule: bool = True,
+        tempering_target: float = 0.97,
         old_data=None,
+        old_cloud: Optional[Cloud] = None,
+        old_loglikelihood: Optional[Callable] = None,
+        tempered_update_prior_weight: float = 0.0,
+        log_prob_old_data: float = 0.0,
         regime_switching: bool = False,
+        run_test: bool = False,
+        loadpath: str = "",
         savepath: Optional[str] = None,
+        particle_store_path: Optional[str] = None,
         save_intermediate: bool = False,
+        intermediate_stage_increment: int = 10,
         continue_intermediate: bool = False,
         store_weight_matrices: bool = True,
         batched: bool = False,
+        fused: Optional[bool] = None,
+        fused_chunk_stages: Optional[int] = None,
         seed: int = 0,
+        key=None,
         mesh=None,
+        run_csminwel: bool = False,
+        debug_assertion: bool = False,
+        profile_dir: Optional[str] = None,
+        aot_cache_dir: Optional[str] = None,
+        parallel: Optional[bool] = None,
+        testing: bool = False,
+        data_vintage: Optional[str] = None,
+        old_vintage: str = "",
+        smc_iteration: int = 1,
+        filestring_addl=(),
+        intermediate_stage_start: int = 0,
         device="cuda") -> SMCResult:
     """Estimate p(theta | data) by tempered SMC on `device`.
 
-    `device` defaults to "cuda": the run is on the card unless the caller
-    passes device="cpu". Without a card the first tensor it creates raises;
-    nothing falls back to the CPU.
-
-    `loglikelihood(theta, data)` maps a tensor f64[P] to a scalar; pass
-    `batched=True` if it maps f64[N, P] to f64[N] (a DSGE model's
-    `loglike_batched`). It must be total: -inf or nan on failure, never an
-    exception. `parameters` is a list of Parameter or a ParamSpace. Draws come
-    from one torch.Generator seeded with `seed` on `device`, so two runs with
-    the same seed on the same device are identical.
-
-    Kwargs of the JAX package whose paths are not ported raise
-    NotImplementedError naming their ROADMAP item."""
-    if not use_fixed_schedule:
-        _not_ported("the adaptive schedule (use_fixed_schedule=False)",
-                    "Queue A item 1")
-    if old_data is not None:
-        _not_ported("tempered updates (old_data)", "Queue A item 4")
-    if continue_intermediate:
-        _not_ported("continue_intermediate", "Queue A item 3")
-    if save_intermediate or savepath is not None:
-        _not_ported("saving (savepath/save_intermediate)", "Queue A item 3")
+    The kwargs are the JAX package's `smc()`'s, with these differences:
+      * `device` defaults to "cuda": the run is on the card unless the
+        caller passes device="cpu". Without a card the first tensor it
+        creates raises; nothing falls back to the CPU.
+      * `loglikelihood(theta, data)` maps a tensor f64[P] to a scalar and
+        is vmapped with torch.func.vmap; pass `batched=True` if it maps
+        f64[N, P] to f64[N] (a DSGE model's `loglike_batched`). It must be
+        total: -inf or nan on failure, never an exception, and free of
+        Python branches on tensor values.
+      * Draws come from one torch.Generator seeded with `seed` on `device`,
+        or from `key`, a draws object (TorchDraws) on `device`. Two runs
+        with the same seed on the same device are identical, and a resume
+        from a checkpoint continues the generator bit for bit.
+      * `continue_intermediate` resumes with the checkpoint's own phi_prop
+        and infers whether the checkpoint's stage resampled from its ESS,
+        so an adaptive-schedule resume is bit-identical too.
+      * `old_cloud` is not modified; a tempered update works on a copy.
+      * `profile_dir` writes a torch.profiler trace of the recursion
+        (`smc_trace.json`).
+      * `aot_cache_dir` has no effect: eager PyTorch has no compiled
+        program to cache (the CUDA kernels' build is cached by _build).
+      * `fused=True` (the whole recursion as one device program) raises
+        NotImplementedError; `fused_chunk_stages` is accepted and unused.
+      * `mesh` (several devices) raises NotImplementedError.
+    Accepted for parity and unused: `parallel`, `data_vintage`,
+    `old_vintage`, `smc_iteration`, `filestring_addl`,
+    `intermediate_stage_start`. `testing=True` suppresses the final writes;
+    `run_csminwel` warns that no mode polish runs."""
+    del parallel, data_vintage, old_vintage, smc_iteration, filestring_addl
+    del intermediate_stage_start, aot_cache_dir, fused_chunk_stages
     if mesh is not None:
         _not_ported("multi-device runs (mesh)", "Queue A item 7")
-    if resampling_method == "metropolis":
-        _not_ported("Metropolis resampling", "Queue A item 2")
-    if verbose == "high":
-        _not_ported("verbose='high'", "Queue A item 5")
+    if fused:
+        _not_ported("fused=True (the whole recursion as one device program; "
+                    "its counterpart is a CUDA graph per stage)",
+                    "Queue A item 9")
     if resampling_method not in VALID_METHODS:
         raise ValueError(f"resampling_method must be one of {VALID_METHODS}")
-    if verbose not in ("none", "low"):
-        raise ValueError("verbose must be 'none' or 'low'")
+    if verbose not in diag.VERBOSITY:
+        raise ValueError(f"verbose must be one of {tuple(diag.VERBOSITY)}")
+    if not (0.0 <= tempered_update_prior_weight <= 1.0):
+        raise ValueError(
+            "The keyword tempered_update_prior_weight must be within [0, 1] "
+            f"but is currently set to {tempered_update_prior_weight}")
+    if run_csminwel:
+        warnings.warn("run_csminwel is accepted for API parity but mode "
+                      "polish is not implemented (matching the reference)")
 
     device = torch.device(device)
     space = (parameters if isinstance(parameters, ParamSpace)
              else ParamSpace(parameters, regime_switching=regime_switching))
     if space.n_free == 0:
         raise ValueError("All model parameters are fixed!")
-    if batched:
-        loglike_batched = lambda th: loglikelihood(th, data)
-    else:
-        loglike_batched = torch.func.vmap(lambda th: loglikelihood(th, data))
 
-    draws = TorchDraws(seed, device)
-    sched = fixed_schedule(n_phi, lam)
+    def batch(fn, d):
+        return (lambda th: fn(th, d)) if batched else \
+            torch.func.vmap(lambda th: fn(th, d))
+
+    loglike_batched = batch(loglikelihood, data)
+    tempered_update = old_data is not None
+    old_loglike_batched = None
+    if tempered_update:
+        old_loglike_batched = batch(old_loglikelihood or loglikelihood,
+                                    old_data)
+
+    draws = key if key is not None else TorchDraws(seed, device)
     threshold = threshold_ratio * n_parts
+    sched = fixed_schedule(n_phi, lam)
+    omega = tempered_update_prior_weight
 
-    t_start = time.perf_counter()
-    cloud, init_rounds = initial_draw(draws, space, loglike_batched, n_parts,
-                                      device=device)
+    # ---- initialization: fresh, tempered update / bridge, or resume --------
+    i = 1
+    j = 1          # 0-based index of the next untried schedule entry
+    phi_prop = 0.0
+    log_mdd = 0.0
+    resampled_last = False
+    init_rounds = 0
+    w_cols: List[torch.Tensor] = []
+    W_cols: List[torch.Tensor] = []
+
+    def reinit_scalars(cloud, tempered):
+        cloud.ESS = [cloud.ESS[-1]] if tempered else [float(n_parts)]
+        cloud.stage_index = 1
+        cloud.n_phi = n_phi
+        cloud.resamples = 0
+        cloud.c = c
+        cloud.accept_rate = target
+        cloud.total_sampling_time = 0.0
+        cloud.tempering_schedule = [0.0]
+        return cloud
+
+    if tempered_update:
+        if old_cloud is None or old_cloud.is_empty():
+            if not loadpath:
+                raise ValueError("tempered update requires old_cloud or "
+                                 "loadpath")
+            old_cloud = smc_io.get_cloud(loadpath, device=device)
+        cloud = _on_device(old_cloud, device)
+        if omega == 0.0 and cloud.n_parts == n_parts:
+            cloud = reinit_scalars(cloud, tempered=True)
+            cloud = initialize_likelihoods(cloud, space, loglike_batched)
+        else:
+            # bridge: (1-omega) N resampled old-posterior draws and omega N
+            # prior draws whose loglh is evaluated on the old data, then all
+            # evaluated on the new data and resampled
+            n_to_resample = int(round((1.0 - omega) * n_parts))
+            n_from_prior = n_parts - n_to_resample
+            parts = []
+            if n_to_resample > 0:
+                idx = resample_indices(draws, cloud.weights,
+                                       method=resampling_method,
+                                       n_parts=n_to_resample)
+                parts.append(cloud.reindexed(idx))
+            if n_from_prior > 0:
+                prior_cloud, init_rounds = initial_draw(
+                    draws, space, old_loglike_batched, n_from_prior,
+                    device=device)
+                parts.append(prior_cloud)
+            cloud = Cloud.create(space.n_para, n_parts, device=device)
+            for f in ("params", "loglh", "logprior", "old_loglh"):
+                setattr(cloud, f, torch.cat([getattr(p, f) for p in parts]))
+            cloud = initialize_likelihoods(cloud, space, loglike_batched)
+            cloud.zero_bad_loglh_weights()
+            norm_w = cloud.normalize_weights()
+            cloud = cloud.reindexed(resample_indices(
+                draws, norm_w, method=resampling_method))
+            cloud.reset_weights()
+            cloud.ESS.append(float(n_parts))
+            cloud = reinit_scalars(cloud, tempered=True)
+    elif continue_intermediate:
+        if not loadpath:
+            raise ValueError("continue_intermediate requires loadpath")
+        (cloud, w_saved, W_saved, j, phi_prop, log_mdd,
+         rng_state) = smc_io.load_checkpoint(loadpath, device=device)
+        draws.set_state(rng_state)
+        as_cols = lambda m: [torch.as_tensor(m[:, k], device=device)
+                             for k in range(m.shape[1])]
+        w_cols, W_cols = as_cols(w_saved), as_cols(W_saved)
+        i = cloud.stage_index
+        c = cloud.c
+        if use_fixed_schedule:
+            cloud.tempering_schedule = list(sched[:i])
+        resampled_last = cloud.ESS[-1] < threshold
+    else:
+        cloud, init_rounds = initial_draw(draws, space, loglike_batched,
+                                          n_parts, device=device)
+        cloud = reinit_scalars(cloud, tempered=False)
+
     cloud.n_phi = n_phi
-    cloud.ESS = [float(n_parts)]
-    cloud.c = c
-    cloud.accept_rate = target
-    cloud.tempering_schedule = [float(sched[0])]
+    if use_fixed_schedule and not continue_intermediate:
+        cloud.tempering_schedule = [float(sched[0])]
+    if store_weight_matrices and not continue_intermediate:
+        w_cols = [torch.zeros(n_parts, dtype=torch.float64, device=device)]
+        W_cols = [cloud.weights if tempered_update else
+                  torch.ones(n_parts, dtype=torch.float64, device=device)]
 
     stage = make_stage_core(space, loglike_batched, n_blocks, n_mh_steps,
-                            alpha, resampling_method, threshold)
-    ones = torch.ones(n_parts, dtype=torch.float64, device=device)
-    w_cols = [torch.zeros_like(ones)]
-    W_cols = [ones]
+                            alpha, resampling_method, threshold, omega,
+                            log_prob_old_data, old_loglike_batched)
+    para_names = list(space.names)
+    diag.init_stage_print(cloud, para_names, verbose=verbose,
+                          use_fixed_schedule=use_fixed_schedule)
+    diag.vprint(verbose, "low", "SMC recursion starts...")
+
     c_dev = torch.tensor(c, dtype=torch.float64, device=device)
-    accept_rate = torch.tensor(target, dtype=torch.float64, device=device)
-    log_mdd = 0.0
-    if verbose == "low":
-        print(f"SMC recursion starts: {n_parts} particles, {n_phi - 1} "
-              f"stages on {device}")
+    accept_rate = torch.tensor(cloud.accept_rate, dtype=torch.float64,
+                               device=device)
+    host_reads = 0
+    chain_lengths: List[int] = []
+    with contextlib.ExitStack() as profiling:
+        if profile_dir:
+            from torch.profiler import profile, ProfilerActivity
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+            prof = profiling.enter_context(profile(activities=acts))
+        phi_n = float(cloud.tempering_schedule[-1]) if continue_intermediate \
+            else 0.0
+        timer = diag.StageTimer()
+        while phi_n < 1.0:
+            i += 1
+            cloud.stage_index = i
+            phi_n1 = float(cloud.tempering_schedule[-1])
+            if use_fixed_schedule:
+                phi_arg, read_along = float(sched[i - 1]), ()
+            else:
+                ess_bar = tempering_target * (
+                    float(n_parts) if resampled_last else cloud.ESS[-1])
+                phi_arg, j_dev, prop_dev = solve_adaptive_phi(
+                    cloud.loglh, cloud.weights, cloud.old_loglh, phi_n1,
+                    sched, j, phi_prop, ess_bar)
+                read_along = (phi_arg, j_dev.to(torch.float64), prop_dev)
+            resampled_last = False
+            c_dev = _logistic_c_update(c_dev, accept_rate, target)
+            (cloud.params, cloud.loglh, cloud.logprior, cloud.old_loglh,
+             cloud.weights, cloud.accept, inc_w, W_col, ess, did_resample,
+             accept_rate, mdd_inc, info) = stage(
+                draws, cloud.params, cloud.loglh, cloud.logprior,
+                cloud.old_loglh, cloud.weights, phi_arg, phi_n1, c_dev,
+                read_along)
+            host_reads += 1
+            if use_fixed_schedule:
+                phi_n = phi_arg
+            else:
+                phi_n, j, phi_prop = info["read"]
+                j = int(j)
+            cloud.tempering_schedule.append(phi_n)
+            cloud.ESS.append(ess)
+            if math.isnan(ess):
+                diag.check_nan_ess(cloud, i, inc_w, W_col,
+                                   savepath or "smc_cloud.npz",
+                                   debug_assertion)
+            if did_resample:
+                cloud.resamples += 1
+                resampled_last = True
+                if "chain_length" in info:
+                    chain_lengths.append(info["chain_length"])
+                    host_reads += 1
+            log_mdd += mdd_inc
+            if store_weight_matrices:
+                w_cols.append(inc_w)
+                W_cols.append(W_col)
+            dt = timer.lap()
+            cloud.total_sampling_time += dt
+            checkpoint = (save_intermediate and savepath
+                          and i % intermediate_stage_increment == 0)
+            if verbose != "none" or checkpoint:
+                cloud.c, cloud.accept_rate = torch.stack(
+                    [c_dev, accept_rate]).tolist()
+                host_reads += 1
+            diag.end_stage_print(cloud, para_names, verbose=verbose,
+                                 use_fixed_schedule=use_fixed_schedule,
+                                 stage_time=dt)
+            if run_test and i == 3:
+                break
+            if checkpoint:
+                smc_io.save_checkpoint(
+                    savepath, i, cloud, _stack(w_cols, n_parts),
+                    _stack(W_cols, n_parts), j, phi_prop, log_mdd,
+                    draws.get_state())
+                host_reads += 1
+        if profile_dir:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            profiling.close()
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(profile_dir,
+                                                  "smc_trace.json"))
 
-    for i in range(2, n_phi + 1):
-        t0 = time.perf_counter()
-        phi_n1, phi_n = float(sched[i - 2]), float(sched[i - 1])
-        c_dev = _logistic_c_update(c_dev, accept_rate, target)
-        (cloud.params, cloud.loglh, cloud.logprior, cloud.old_loglh,
-         cloud.weights, cloud.accept, inc_w, W_col, ess, did_resample,
-         accept_rate, mdd_inc) = stage(
-            draws, cloud.params, cloud.loglh, cloud.logprior,
-            cloud.old_loglh, cloud.weights, phi_n, phi_n1, c_dev)
-        cloud.stage_index = i
-        cloud.tempering_schedule.append(phi_n)
-        cloud.ESS.append(ess)
-        cloud.resamples += int(did_resample)
-        log_mdd += mdd_inc
-        if store_weight_matrices:
-            w_cols.append(inc_w)
-            W_cols.append(W_col)
-        if np.isnan(ess):
-            raise RuntimeError(f"ESS is NaN at stage {i}: every particle has "
-                               "zero weight or a -inf likelihood")
-        if verbose == "low":
-            print(f"stage {i - 1}/{n_phi - 1}  phi={phi_n:.6f}  "
-                  f"c={float(c_dev):.4f}  accept={float(accept_rate):.4f}  "
-                  f"ESS={ess:.1f}  resampled={did_resample}  "
-                  f"t={time.perf_counter() - t0:.3f}s")
-
-    cloud.c = float(c_dev)
-    cloud.accept_rate = float(accept_rate)
-    cloud.total_sampling_time = time.perf_counter() - t_start
+    cloud.c, cloud.accept_rate = torch.stack([c_dev, accept_rate]).tolist()
     w_matrix = W_matrix = None
     if store_weight_matrices:
-        w_matrix = torch.stack(w_cols, dim=1).cpu().numpy()
-        W_matrix = torch.stack(W_cols, dim=1).cpu().numpy()
+        w_matrix, W_matrix = _stack(w_cols, n_parts), _stack(W_cols, n_parts)
+    if savepath and not testing:
+        extra = {"w": w_matrix, "W": W_matrix} if store_weight_matrices else {}
+        extra["log_mdd"] = np.asarray(log_mdd)
+        smc_io.save_cloud(savepath, cloud, extra=extra)
+    if particle_store_path and not testing:
+        smc_io.save_particle_store(particle_store_path, cloud)
     return SMCResult(cloud=cloud, w=w_matrix, W=W_matrix, log_mdd=log_mdd,
-                     para_names=list(space.names), space=space,
-                     init_rounds=init_rounds)
+                     para_names=para_names, space=space,
+                     init_rounds=init_rounds, host_reads=host_reads,
+                     chain_lengths=chain_lengths)
+
+
+def _stack(cols: List[torch.Tensor], n_parts: int) -> np.ndarray:
+    """Weight columns as one host matrix [N, len(cols)]."""
+    if not cols:
+        return np.zeros((n_parts, 0))
+    return torch.stack(cols, dim=1).cpu().numpy()

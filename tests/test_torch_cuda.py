@@ -77,3 +77,49 @@ def test_ragged_n_kernels_match_plain(dev, n, part):
         ll = cuda_dsge.kalman_chandrasekhar(Xp, Mp, *rest, ok=okp)
         want = bl_dsge_loglike(*sys_t, *rest)
         assert_loglh_close(ll.cpu().numpy(), want.cpu().numpy())
+
+
+def _schedule_cloud(n, scale, seed):
+    rng = np.random.default_rng(seed)
+    w = np.exp(0.3 * rng.standard_normal(n))
+    return (-50.0 + scale * rng.standard_normal(n), n * w / w.sum(),
+            -40.0 + scale * rng.standard_normal(n))
+
+
+@pytest.mark.parametrize("scale", [1000.0, 10.0, 0.05])
+def test_solve_adaptive_phi_on_card_matches_cpu(dev, scale):
+    """An interior target, an advance over several entries, saturation at
+    1: j and phi_prop equal, phi_n within 1e-12."""
+    from smc_tpu_torch.ops.schedule import fixed_schedule, solve_adaptive_phi
+    loglh, w, old = _schedule_cloud(16_384, scale, seed=3)
+    sched = fixed_schedule(100, 2.0)
+    ess_bar = 0.97 * len(w) ** 2 / np.sum(w * w)
+    out = []
+    for d in ("cpu", dev):
+        phi, j, prop = solve_adaptive_phi(
+            *(torch.as_tensor(a, device=d) for a in (loglh, w, old)),
+            float(sched[10]), sched, 11, float(sched[11]), ess_bar)
+        out.append((phi.item(), int(j), prop.item()))
+    (phi_c, j_c, prop_c), (phi_g, j_g, prop_g) = out
+    assert (j_g, prop_g) == (j_c, prop_c)
+    assert abs(phi_g - phi_c) <= 1e-12
+
+
+def test_metropolis_fixed_chain_on_card_matches_cpu(dev):
+    """The same numpy draws replayed on both devices give the same
+    ancestors, across the chain's 128-step draw blocks."""
+    from smc_tpu_torch.ops.resample import resample
+    from smc_tpu_torch.rng import ReplayDraws
+    n, n_iter = 4096, 300
+    rng = np.random.default_rng(9)
+    w = np.exp(1.5 * rng.standard_normal(n))
+    props = rng.integers(0, n, (n_iter, n))
+    us = rng.uniform(size=(n_iter, n))
+    entries = []
+    for s in range(0, n_iter, 128):
+        entries += [("integers", props[s:s + 128]),
+                    ("uniform", us[s:s + 128])]
+    got = [resample(ReplayDraws(entries, device=d),
+                    torch.as_tensor(w, device=d), method="metropolis",
+                    n_iter=n_iter).cpu() for d in ("cpu", dev)]
+    assert torch.equal(got[0], got[1])

@@ -194,16 +194,31 @@ def test_same_seed_runs_are_bitwise_equal():
     assert not torch.equal(a.cloud.params, c.cloud.params)
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(use_fixed_schedule=False), dict(old_data=np.zeros((1, 3))),
-    dict(continue_intermediate=True), dict(save_intermediate=True),
-    dict(savepath="cloud.npz"), dict(mesh=object()),
-    dict(resampling_method="metropolis"), dict(verbose="high")])
+@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(fused=True)])
 def test_unported_paths_raise(kwargs):
     y, x = generate_regression_data(n=10, seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         smc_tpu_torch.smc(make_regression_loglike(x), regression_parameters(),
                           y, n_parts=10, n_phi=3, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(use_fixed_schedule=False), dict(save_intermediate=True),
+    dict(resampling_method="metropolis"), dict(verbose="high"),
+    dict(run_test=True), dict(store_weight_matrices=False)])
+def test_formerly_refused_paths_run(kwargs, tmp_path):
+    """The paths that earlier slices refused now run; a checkpointing run
+    leaves a checkpoint per `intermediate_stage_increment` stages."""
+    y, x = generate_regression_data(n=10, seed=1)
+    res = smc_tpu_torch.smc(make_regression_loglike(x),
+                            regression_parameters(), y, n_parts=50, n_phi=7,
+                            device="cpu", savepath=str(tmp_path / "c.npz"),
+                            intermediate_stage_increment=3, **kwargs)
+    assert res.cloud.tempering_schedule[-1] == 1.0 or kwargs.get("run_test")
+    assert np.isfinite(res.log_mdd)
+    files = sorted(p.name for p in tmp_path.iterdir())
+    assert files == (["c.npz", "c_stage=3.npz", "c_stage=6.npz"]
+                     if kwargs.get("save_intermediate") else ["c.npz"])
 
 
 def test_verbose_low_prints_each_stage(capsys):
