@@ -7,11 +7,14 @@ smc_tpu_torch.smc on the card, then the rest of smc()'s paths:
   (b) AS with the adaptive schedule;
   (c) the linear fixture with Metropolis resampling;
   (d) checkpoint and resume of the linear fixture, bitwise;
-  (e) tempered update and bridge distribution from half the linear data.
+  (e) tempered update and bridge distribution from half the linear data;
+  (f) Smets-Wouters at 4,096 particles (the reference's production model);
+  (g) An-Schorfheide on two observables at 16,384 particles;
+  (h) CAPM at three seeds.
 
     python3 chip_smoke.py                 # all phases
-    python3 chip_smoke.py --profile DIR   # also profile AS, adaptive AS and
-                                          # the linear fixture
+    python3 chip_smoke.py --profile DIR   # also profile AS, adaptive AS,
+                                          # the linear fixture and SW
 
 Needs one CUDA card and nvcc (the kernels are built from csrc/ at first
 use). Every phase raises on failure and the script exits nonzero; it never
@@ -55,6 +58,27 @@ AS_CONFIG = dict(batched=True, n_parts=AS_N_PARTS, n_phi=AS_N_PHI, lam=2.0,
 OK_AGREE_MIN = 0.9999
 XM_RTOL = 1e-10
 LL_RTOL = 1e-9             # over the posterior band (50 nats of the best)
+# Smets-Wouters at the reference dsge_model.jl's configuration
+SW_N_PARTS = 4_096
+SW_CONFIG = dict(batched=True, n_parts=SW_N_PARTS, n_phi=100, lam=2.1,
+                 n_blocks=3, alpha=0.9, resampling_method="multinomial",
+                 verbose="none")
+SW_CMP_DRAWS = 1_024      # prior draws, card against CPU
+SW_CMP_POSTERIOR = 256    # and particles of (f)'s final cloud
+# AS-2obs: the JAX package's log-MDD at AS_CONFIG on load_as_data()[:2],
+# seed 0 (seeds 1 and 2: -946.9598, -946.9346), printed by
+# `JAX_PLATFORMS=cpu python tests/test_torch_as2obs.py`
+REF_LOG_MDD_AS2 = -946.9788833516116
+# CAPM at the JAX package's tests/test_capm.py configuration
+CAPM_CONFIG = dict(n_parts=5_000, n_phi=100, lam=2.1, alpha=0.9,
+                   resampling_method="systematic", verbose="none")
+CAPM_SEEDS = (42, 0, 1)
+CAPM_TRUE = (0.1, 0.8, 0.5, 0.2, 1.0, 0.5, 0.3, 1.2, 0.5)
+# likelihood bands of tests/torch_parity.py (card against CPU), and the
+# wider tail of SW's Chandrasekhar recursion (tests/test_torch_sw.py)
+BAND_NATS, BAND_RTOL = 50.0, 1e-10
+TAIL_NATS, TAIL_RTOL = 1e6, 1e-7
+SW_TAIL_RTOL = 1e-3
 
 
 def smi_line() -> str:
@@ -142,22 +166,30 @@ def re_flops(ns, nk, cr_iters):
     return cr_iters * per_iter + tail
 
 
-def kalman_flops(ns, nk, lyap_iters, n_t):
-    """flop of the Kalman filter of one ok particle (kalman_warp): R Q R',
-    the doubling steps, the set-up of F, K, M and n_t Chandrasekhar steps."""
-    no = 3
+def psd_solve_flops(no, m):
+    """flop of one PSD innovation solve with m right-hand sides: the 3x3
+    cofactor form (kalman_warp's), or Cholesky and two triangular solves."""
+    if no == 3:
+        return 2 * 6 + 5 + 1 + m * (3 * 5 + 1)
+    return 2 * no ** 3 // 3 + 2 * no * no * m
+
+
+def kalman_flops(ns, nk, lyap_iters, n_t, no=3):
+    """flop of the Kalman filter of one ok particle (kalman_warp, or the
+    plain Chandrasekhar filter at any n_obs): R Q R', the doubling steps,
+    the set-up of F, K, M and n_t Chandrasekhar steps."""
     setup = 2 * ns * nk * nk + 2 * ns * ns * nk
     per_doubling = 3 * 2 * ns ** 3 + ns * ns
-    first = 2 * ns * ns * no * 2 + 2 * no * no * ns + 60
-    cof = 2 * 6 + 5 + 1
+    first = (2 * ns * ns * no * 2 + 2 * no * no * ns
+             + (60 if no == 3 else psd_solve_flops(no, no)))
     per_step = (2 * no * no * ns + 2 * no * ns + 2 * no       # Z W, Z s, v
-                + cof + (1 + no) * (3 * 5 + 1) + 10           # solve, quad
+                + psd_solve_flops(no, 1 + no) + 10            # solve, quad
                 + 2 * ns * ns + 2 * ns * no + ns              # s
                 + 2 * no ** 3 + 2 * ns * no * no              # M W'Z', W M W'Z'
                 + 2 * ns * ns * no + 2 * ns * no * no         # new W
                 + 2 * ns * ns * no + ns * no                  # new K
                 + 2 * no * no * ns + no * no + 6              # new F
-                + cof + no * (3 * 5 + 1) + 2 * 2 * no ** 3 + no * no + 6
+                + psd_solve_flops(no, no) + 2 * 2 * no ** 3 + no * no + 6
                 + 8)                                          # new M, guards
     return setup + lyap_iters * per_doubling + first + n_t * per_step
 
@@ -628,6 +660,213 @@ def tempered_phase(dev, lin):
                                f"means off by {err}")
 
 
+def card_vs_cpu(dev, name, model, th, data, tail_rtol):
+    """Thetas th [N, P] (on the CPU) through the model's likelihood on the
+    card and on the CPU: the same -inf pattern, rtol BAND_RTOL within
+    BAND_NATS of the best lane and tail_rtol within TAIL_NATS (the bands of
+    tests/torch_parity.py; SW's tail is tests/test_torch_cuda.py's)."""
+    import numpy as np
+    t0 = time.perf_counter()
+    want = model.loglike_batched(th, data).numpy()
+    t_cpu = time.perf_counter() - t0
+    got = model.loglike_batched(th.to(dev), data).cpu().numpy()
+    fin = np.isfinite(want)
+    n_pattern = int((np.isfinite(got) != fin).sum())
+    best = want[fin].max()
+    band = fin & (want > best - BAND_NATS)
+    tail = fin & (want > best - TAIL_NATS) & np.isfinite(got)
+    rel = np.abs(got[tail] - want[tail]) / np.abs(want[tail])
+    band_err = rel[band[tail]].max()
+    print(f"# {name} card vs CPU at {len(want)} thetas: {int(fin.sum())} "
+          f"finite, finite-pattern disagreements {n_pattern}; "
+          f"{int(band.sum())} band lanes max rel err {band_err:.3e} "
+          f"(gate {BAND_RTOL:g}); "
+          f"{int(tail.sum())} lanes within {TAIL_NATS:g} nats max rel err "
+          f"{rel.max():.3e} (gate {tail_rtol:g}); CPU {t_cpu:.2f} s")
+    if not (n_pattern == 0 and band_err <= BAND_RTOL
+            and rel.max() <= tail_rtol):
+        raise RuntimeError(f"{name}: the card's likelihood disagrees with "
+                           "the CPU's")
+
+
+def prior_draws(params, n, seed=11):
+    """n prior draws [n, P] made on the CPU."""
+    from smc_tpu_torch.params import ParamSpace
+    from smc_tpu_torch.rng import TorchDraws
+    return ParamSpace(params).sample_prior(TorchDraws(seed, "cpu"), n,
+                                           device="cpu")
+
+
+def sw_call_stats(dev, model, data):
+    """One SW likelihood call at SW_N_PARTS prior draws: its time between
+    CUDA events, its host time, the device launches one call makes, and the
+    least time for its work (the plain path's fixed iteration counts, and
+    the counts these draws need)."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    from torch.autograd import DeviceType
+    from smc_tpu_torch.models import sw_dsge
+    from smc_tpu_torch.models.dsge import bl_solve_linear_re
+    from smc_tpu_torch.params import ParamSpace
+    from smc_tpu_torch.rng import TorchDraws
+    th = ParamSpace(sw_dsge.sw_parameters()).sample_prior(
+        TorchDraws(2, dev), SW_N_PARTS, device=dev)
+    call = lambda: model.loglike_batched(th, data)
+    ms = cuda_ms(call, 2, 3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    launches = sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    ns, nk, no, n_t = sw_dsge.N_STATE, sw_dsge.N_SHOCK, sw_dsge.N_OBS, \
+        data.shape[1]
+    n_bytes = (8 * SW_N_PARTS * (3 * ns * ns + ns * nk + nk * nk + no * ns
+                                 + no + no * no + 1) + 8 * no * n_t)
+    flop = SW_N_PARTS * (re_flops(ns, nk, 16) + kalman_flops(ns, nk, 30, n_t,
+                                                             no))
+    bound, by = bound_ms(flop, n_bytes)
+    A, B, C, D = sw_dsge._system(th)
+    cr_it = cr_iterations(A, B, C)
+    X, _, ok = bl_solve_linear_re(A, B, C, D)
+    ly_it = lyapunov_iterations(X[..., ok])
+    need = (sum(re_flops(ns, nk, int(i)) for i in cr_it.tolist())
+            + sum(kalman_flops(ns, nk, int(i), n_t, no)
+                  for i in ly_it.tolist()))
+    need_bound, need_by = bound_ms(need, n_bytes)
+    print(f"# (f) SW likelihood call at N={SW_N_PARTS} (plain PyTorch, no "
+          f"kernel): {ms:.4f} ms between CUDA events, {host_ms:.4f} ms of "
+          f"host time, {launches} device launches; work {flop:.4e} flop "
+          f"(16 cyclic-reduction iterations, 30 doubling steps), bound "
+          f"{bound:.4f} ms ({by}), {100 * bound / ms:.2f}% of it; these draws"
+          f" need {cr_it.double().mean().item():.4f} iterations and "
+          f"{ly_it.double().mean().item():.4f} doubling steps on average "
+          f"({int(ok.sum())} ok): {need:.4e} flop, bound {need_bound:.4f} ms "
+          f"({need_by})")
+
+
+def _run_line(name, res, wall, n_parts):
+    n_stages = len(res.cloud.tempering_schedule) - 1
+    print(f"# {name} wall {wall:.4f} s, {n_stages} stages, "
+          f"{1e3 * wall / n_stages:.4f} ms/stage, "
+          f"{n_parts * n_stages / wall:.1f} mutations/s, host reads per "
+          f"stage {res.host_reads / n_stages:.4f}")
+
+
+def sw_runner(dev):
+    import smc_tpu_torch
+    from smc_tpu_torch.models import sw_dsge
+    model, data = sw_dsge.smets_wouters(), sw_dsge.load_sw_data()
+    return model, data, lambda **kw: smc_tpu_torch.smc(
+        model.loglike_batched, sw_dsge.sw_parameters(), data,
+        **dict(SW_CONFIG, **kw), device=dev)
+
+
+def sw_phase(dev):
+    """(f) SW-4k: Smets-Wouters at the reference dsge_model.jl's
+    configuration on the committed data, gated as the JAX package's
+    tests/test_sw_estimation.py; then one likelihood call's cost, and
+    prior draws and posterior particles on the card against the CPU."""
+    import numpy as np
+    import torch
+    from smc_tpu_torch.models import sw_dsge
+    from smc_tpu_torch.ops import cuda_dsge
+    model, data, run = sw_runner(dev)
+    _, wall = _timed(lambda: run(n_phi=3, seed=1))
+    print(f"# (f) warm-up (2 stages) {wall:.4f} s")
+    _reset_launches()
+    res, wall = _timed(lambda: run(seed=0))
+    sched = np.asarray(res.cloud.tempering_schedule)
+    mu, sd = res.posterior_mean(), res.posterior_std()
+    z = np.abs(mu - sw_dsge.TRUE_PARAMS) / np.maximum(sd, 1e-8)
+    idx = {n: i for i, n in enumerate(sw_dsge.PARAM_NAMES)}
+    ar = {n: abs(mu[idx[n]] - sw_dsge.TRUE_PARAMS[idx[n]])
+          for n in ("crhoa", "crhog")}
+    print(f"# (f) SW-{SW_N_PARTS}: log-MDD {res.log_mdd:.4f}; max |z| vs "
+          f"TRUE_PARAMS {z.max():.3f} ({sw_dsge.PARAM_NAMES[int(z.argmax())]})"
+          f", share |z| < 3 {np.mean(z < 3.0):.4f}; |mean - true| crhoa "
+          f"{ar['crhoa']:.4f} crhog {ar['crhog']:.4f}; resamples "
+          f"{res.cloud.resamples}; final accept {res.cloud.accept_rate:.4f}; "
+          f"kernel launches {dict(cuda_dsge.LAUNCHES)}")
+    _run_line("(f) SW", res, wall, SW_N_PARTS)
+    if not (sched[-1] == 1.0 and np.all(np.diff(sched) > 0)
+            and bool(torch.isfinite(res.cloud.loglh).all())
+            and np.isfinite(res.log_mdd)):
+        raise RuntimeError("(f) SW: schedule, loglh or log-MDD not sound")
+    if not (z.max() < 6.0 and np.mean(z < 3.0) > 0.85
+            and max(ar.values()) < 0.1):
+        raise RuntimeError(f"(f) SW posterior off: z={z.tolist()}")
+    sw_call_stats(dev, model, data)
+    th = torch.cat([prior_draws(sw_dsge.sw_parameters(), SW_CMP_DRAWS),
+                    res.cloud.params[:SW_CMP_POSTERIOR].cpu()])
+    card_vs_cpu(dev, f"(f) SW ({SW_CMP_DRAWS} prior draws, "
+                f"{SW_CMP_POSTERIOR} posterior particles)", model, th, data,
+                SW_TAIL_RTOL)
+
+
+def as2obs_phase(dev):
+    """(g) AS-2obs-16k: An-Schorfheide on output growth and inflation
+    (the Cholesky innovation path, plain PyTorch) at AS-16k's
+    configuration, and 16,384 prior draws on the card against the CPU."""
+    import numpy as np
+    import smc_tpu_torch
+    from smc_tpu_torch.models import as_dsge
+    model, data = as_dsge.an_schorfheide_2obs(), as_dsge.load_as_data()[:2]
+    run = lambda **kw: smc_tpu_torch.smc(
+        model.loglike_batched, as_dsge.an_schorfheide_parameters(), data,
+        **dict(AS_CONFIG, **kw), device=dev)
+    _timed(lambda: run(n_phi=3, seed=1))
+    res, wall = _timed(lambda: run(seed=0))
+    mu, sd = res.posterior_mean(), res.posterior_std()
+    z = np.abs(mu - as_dsge.TRUE_PARAMS) / np.maximum(sd, 1e-9)
+    print(f"# (g) AS-2obs: log-MDD {res.log_mdd:.4f} (JAX package "
+          f"{REF_LOG_MDD_AS2}); max |z| vs TRUE_PARAMS {z.max():.3f}")
+    _run_line("(g) AS-2obs", res, wall, AS_N_PARTS)
+    if not abs(res.log_mdd - REF_LOG_MDD_AS2) <= MDD_TOL:
+        raise RuntimeError(f"(g) log-MDD {res.log_mdd} not within {MDD_TOL} "
+                           f"nats of {REF_LOG_MDD_AS2}")
+    if not (np.all(np.isfinite(mu)) and np.all(z < 4.0)):
+        raise RuntimeError(f"(g) posterior means off: z={z.tolist()}")
+    card_vs_cpu(dev, "(g) AS-2obs", model,
+                prior_draws(as_dsge.an_schorfheide_parameters(), AS_N_PARTS),
+                data, TAIL_RTOL)
+
+
+def capm_phase(dev):
+    """(h) CAPM at the JAX package's tests/test_capm.py configuration,
+    seeds 42, 0 and 1: the median over the seeds of each parameter's |z|
+    below 5, and every log-MDD finite."""
+    import numpy as np
+    import smc_tpu_torch
+    from smc_tpu_torch.models import capm
+    lik, market = capm.generate_capm_data(T=200, seed=1793)
+    ll = capm.make_capm_loglike(market)
+    run = lambda **kw: smc_tpu_torch.smc(ll, capm.capm_parameters(), lik,
+                                         **dict(CAPM_CONFIG, **kw),
+                                         device=dev)
+    _timed(lambda: run(n_phi=3, seed=1))
+    zs = []
+    for seed in CAPM_SEEDS:
+        res, wall = _timed(lambda: run(seed=seed))
+        mu, sd = res.posterior_mean(), res.posterior_std()
+        zs.append(np.abs(mu - CAPM_TRUE) / np.maximum(sd, 1e-9))
+        print(f"# (h) CAPM seed {seed}: log-MDD {res.log_mdd:.4f}, |z| "
+              f"{np.array2string(zs[-1], precision=2)}")
+        _run_line(f"(h) CAPM seed {seed}", res, wall, CAPM_CONFIG["n_parts"])
+        if not np.isfinite(res.log_mdd):
+            raise RuntimeError(f"(h) CAPM seed {seed}: log-MDD not finite")
+    med = np.median(zs, axis=0)
+    print(f"# (h) CAPM median |z| over seeds "
+          f"{np.array2string(med, precision=2)} (gate < 5)")
+    if not np.all(med < 5.0):
+        raise RuntimeError(f"(h) CAPM median |z| {med.tolist()}")
+
+
 def profile_path(out_dir, name, run):
     """Profile one run with torch.profiler: device busy time (the sum of
     the device-side events: one stream, so they do not overlap) against
@@ -665,8 +904,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile one more run each of AS-16k, the "
-                         "linear fixture and adaptive AS-16k, and write "
-                         "their tables to DIR")
+                         "linear fixture, adaptive AS-16k and one stage of "
+                         "SW-4k, and write their tables to DIR")
     args = ap.parse_args(argv)
 
     sys.path.insert(0, HERE)
@@ -685,7 +924,7 @@ def main(argv=None) -> int:
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib = _build.build_cuda_library()
     print(f"# kernel build {time.perf_counter() - t0:.2f} s ({lib.name})")
     for line in ptxas_lines(lib.with_suffix(".log").read_text()):
@@ -708,8 +947,16 @@ def main(argv=None) -> int:
     metropolis_phase(dev, lin)
     checkpoint_phase(dev, lin, res_a)
     tempered_phase(dev, lin)
+    sw_phase(dev)
+    if args.profile:
+        _, _, run_sw = sw_runner(dev)
+        profile_path(args.profile, "sw4k", lambda: run_sw(seed=0, n_phi=2))
+    as2obs_phase(dev)
+    capm_phase(dev)
     for k, key in zip(kernels, ("re", "kalman")):
         k["launches"] = launches[key]
+    print(f"# all phases {time.perf_counter() - t_start:.1f} s (build "
+          "included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -134,6 +134,33 @@ def an_schorfheide(likelihood_backend: str = "kernel") -> LinearDSGE:
                       likelihood_backend=likelihood_backend)
 
 
+def _measurement_2obs(thetas: torch.Tensor):
+    """Output growth and inflation only (the policy rate dropped): the
+    n_obs = 2 innovation path (Cholesky; the cofactor form is 3x3 only)."""
+    d, Z, H = _measurement(thetas)
+    return d[:2].contiguous(), Z[:2].contiguous(), H[:2, :2].contiguous()
+
+
+def an_schorfheide_2obs() -> LinearDSGE:
+    """An-Schorfheide with 2 observables. The kernels serve n_obs = 3 only,
+    so the likelihood is the plain PyTorch path."""
+    return LinearDSGE(an_schorfheide_parameters(), _system,
+                      _measurement_2obs, _N_SHOCK, _shock_cov,
+                      likelihood_backend="plain")
+
+
+def generate_as_data(T: int = 80, seed: int = 1793,
+                     theta: np.ndarray = TRUE_PARAMS,
+                     device="cuda") -> np.ndarray:
+    """Observables [3, T] simulated at `theta`, shocks from
+    TorchDraws(seed, device). This is torch's stream, not the JAX
+    package's: its generate_as_data(T=80, seed=1793) is `load_as_data()`."""
+    from smc_tpu_torch.rng import TorchDraws
+    model = an_schorfheide(likelihood_backend="plain")
+    obs = model.simulate(theta, T, TorchDraws(seed, device))
+    return obs.cpu().numpy()
+
+
 def load_as_data() -> np.ndarray:
     """The AS observables [3, 80]: the JAX package's
     generate_as_data(T=80, seed=1793), committed as an array (its simulator

@@ -6,7 +6,8 @@ where `pallas_kalman_chandrasekhar` (kernel `_kalman_kernel`) stood, and
 `dsge_loglike` composes the two as `pallas_dsge_loglike` did.
 
 Dispatch: a CPU tensor runs the plain PyTorch version (models/dsge.py
-`bl_*`); a CUDA tensor launches the kernel, or raises. There is no fallback.
+`bl_*`); a CUDA tensor launches the kernel, or raises. Shapes without a
+kernel raise ValueError on every device. There is no fallback.
 `LAUNCHES` counts kernel launches, one per call that reaches the GPU.
 
 The kernels (csrc/dsge_kernels.cu, bodies in csrc/dsge_particle.cuh) run
@@ -97,10 +98,15 @@ def _cuda_device(t: torch.Tensor) -> torch.device:
     return t.device
 
 
-def _sizes(n_s, n_k):
+def _sizes(n_s, n_k, n_o=N_OBS):
+    """Raise ValueError, whatever the device, for shapes without a kernel:
+    the CPU's plain path serves only what the card's kernels serve."""
     if (n_s, n_k) not in SIZES:
         raise ValueError(f"no kernel instantiated for n_state={n_s}, "
                          f"n_shock={n_k}; have {SIZES}")
+    if n_o != N_OBS:
+        raise ValueError(f"the Kalman kernel needs n_obs == {N_OBS}, not "
+                         f"{n_o}")
 
 
 def _raise_on(rc, what):
@@ -113,11 +119,11 @@ def solve_linear_re(A, B, C, D, n_iter: int = 16, tol: float = 1e-8):
     The kernel exits cyclic reduction per particle at convergence; the plain
     version runs all n_iter iterations (they agree to f64 rounding, since
     the iteration is quadratic)."""
+    n_s, n_k, n = A.shape[0], D.shape[1], A.shape[-1]
+    _sizes(n_s, n_k)
     if A.device.type == "cpu":
         return bl_solve_linear_re(A, B, C, D, n_iter=n_iter, tol=tol)
     dev = _cuda_device(A)
-    n_s, n_k, n = A.shape[0], D.shape[1], A.shape[-1]
-    _sizes(n_s, n_k)
     for name, t in (("A", A), ("B", B), ("C", C)):
         _check(name, t, (n_s, n_s, n), dev)
     _check("D", D, (n_s, n_k, n), dev)
@@ -143,13 +149,13 @@ def kalman_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H, data, ok=None,
     Z [3,n,N], d_obs [3,N], H [3,3,N], data [3,T] -> loglh [N]. Particles
     with ok == False (optional bool [N]) get -inf. The kernel exits the
     Lyapunov doubling per particle once it has converged."""
+    n_s, n_k, n = T_mat.shape[0], R_mat.shape[1], T_mat.shape[-1]
+    _sizes(n_s, n_k, Z.shape[0])
     if T_mat.device.type == "cpu":
         ll = bl_kalman_loglike_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H,
                                              data)
         return ll if ok is None else torch.where(ok, ll, float("-inf"))
     dev = _cuda_device(T_mat)
-    n_s, n_k, n = T_mat.shape[0], R_mat.shape[1], T_mat.shape[-1]
-    _sizes(n_s, n_k)
     n_t = data.shape[-1]
     _check("T", T_mat, (n_s, n_s, n), dev)
     _check("R", R_mat, (n_s, n_k, n), dev)
@@ -181,5 +187,6 @@ def kalman_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H, data, ok=None,
 def dsge_loglike(A, B, C, D, Q, Z, d_obs, H, data):
     """Full DSGE likelihood: RE solve, then the Kalman filter on the
     particles whose solve succeeded; rejected draws -> -inf."""
+    _sizes(A.shape[0], D.shape[1], Z.shape[0])
     X, M, ok = solve_linear_re(A, B, C, D)
     return kalman_chandrasekhar(X, M, Q, Z, d_obs, H, data, ok=ok)
