@@ -10,11 +10,16 @@ smc_tpu_torch.smc on the card, then the rest of smc()'s paths:
   (e) tempered update and bridge distribution from half the linear data;
   (f) Smets-Wouters at 4,096 particles (the reference's production model);
   (g) An-Schorfheide on two observables at 16,384 particles;
-  (h) CAPM at three seeds.
+  (h) CAPM at three seeds;
+  (i) the particle mesh: AS-16k under smc(mesh=particle_mesh()) on one
+      NCCL rank, on two gloo ranks sharing the card, and on one NCCL rank
+      per card where there are two or more.
 
     python3 chip_smoke.py                 # all phases
     python3 chip_smoke.py --profile DIR   # also profile AS, adaptive AS,
                                           # the linear fixture and SW
+    python3 chip_smoke.py --mesh-only     # the build, the AS main path and
+                                          # phase (i) alone
 
 Needs one CUDA card and nvcc (the kernels are built from csrc/ at first
 use). Every phase raises on failure and the script exits nonzero; it never
@@ -79,6 +84,12 @@ CAPM_TRUE = (0.1, 0.8, 0.5, 0.2, 1.0, 0.5, 0.3, 1.2, 0.5)
 BAND_NATS, BAND_RTOL = 50.0, 1e-10
 TAIL_NATS, TAIL_RTOL = 1e6, 1e-7
 SW_TAIL_RTOL = 1e-3
+# (i) the particle mesh: one rank against the unsharded run, several ranks
+# against one rank, and how long the spawned ranks may take in all
+MESH_ONE_RANK_RTOL = 1e-12
+MESH_RTOL = 1e-9
+MESH_TIMEOUT = 600         # seconds
+MESH_PG_TIMEOUT = 300      # seconds a collective waits for the other ranks
 
 
 def smi_line() -> str:
@@ -458,7 +469,7 @@ def main_path(dev):
     print(f"# AS wall {wall:.4f} s, {1e3 * wall / n_stages:.4f} ms/stage, "
           f"{AS_N_PARTS * n_stages / wall:.1f} mutations/s, host reads per "
           f"stage {res.host_reads / n_stages:.4f}")
-    return launches
+    return launches, res
 
 
 def _reset_launches():
@@ -867,6 +878,188 @@ def capm_phase(dev):
         raise RuntimeError(f"(h) CAPM median |z| {med.tolist()}")
 
 
+def _mesh_result(res, launches, wall) -> dict:
+    """What a mesh rank reports of its AS run, as numpy arrays."""
+    import numpy as np
+    c = res.cloud
+    return dict(log_mdd=res.log_mdd, params=c.params.cpu().numpy(),
+                loglh=c.loglh.cpu().numpy(), weights=c.weights.cpu().numpy(),
+                schedule=np.asarray(c.tempering_schedule),
+                ESS=np.asarray(c.ESS), W=res.W, mean=res.posterior_mean(),
+                std=res.posterior_std(), init_rounds=res.init_rounds,
+                launches_re=launches["re"],
+                launches_kalman=launches["kalman"], wall=wall,
+                collectives=res.collectives, bytes=res.collective_bytes,
+                host_reads=res.host_reads)
+
+
+def _mesh_rank(rank, world, backend, device, store, out):
+    """One rank of a spawned mesh: a 2-stage warm-up under the mesh, then
+    AS-16k at AS_CONFIG, seed 0, with the launches counted from 0; the
+    result goes to OUT/rank<rank>.npz."""
+    import datetime
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from smc_tpu_torch.ops import cuda_dsge
+    from smc_tpu_torch.parallel import initialize_multihost, particle_mesh
+    dev = torch.device(device.format(rank=rank))
+    initialize_multihost(num_processes=world, process_id=rank,
+                         backend=backend, device=dev,
+                         store=torch.distributed.FileStore(store, world),
+                         timeout=datetime.timedelta(seconds=MESH_PG_TIMEOUT))
+    try:
+        mesh = particle_mesh()
+        run = as_runner(dev)
+        run(n_phi=3, seed=1, mesh=mesh)
+        _reset_launches()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = run(seed=0, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        np.savez(os.path.join(out, f"rank{rank}.npz"), **_mesh_result(
+            res, dict(cuda_dsge.LAUNCHES), wall))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_mesh(world, backend, device):
+    """Run _mesh_rank on `world` spawned processes (rank r on
+    device.format(rank=r)); a rank that fails, or ranks that take longer
+    than MESH_TIMEOUT, raise. Returns each rank's result and the wall time
+    of the whole, process start included."""
+    import tempfile
+    import numpy as np
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            _mesh_rank, args=(world, backend, device,
+                              os.path.join(tmp, "store"), tmp),
+            nprocs=world, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > MESH_TIMEOUT:
+                    raise RuntimeError(f"mesh ranks ({backend}) not done "
+                                       f"after {MESH_TIMEOUT} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        wall = time.perf_counter() - t0
+        return [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+                for r in range(world)], wall
+
+
+def _mesh_gates(name, ranks, ref_mdd, n_parts):
+    """Every rank bitwise equal to rank 0, log-MDD within MESH_RTOL of
+    `ref_mdd` and MDD_TOL of the JAX package's, posterior means within 4
+    sd, each rank's launches 1 + rounds + stages; prints the wall times and
+    the collectives."""
+    import numpy as np
+    from smc_tpu_torch.models import as_dsge
+    r0 = ranks[0]
+    same = all(np.array_equal(r0[k], r[k]) for r in ranks[1:] for k in r0
+               if k != "wall")
+    n_stages = len(r0["schedule"]) - 1
+    expected = 1 + int(r0["init_rounds"]) + n_stages
+    launches = [(int(r["launches_re"]), int(r["launches_kalman"]))
+                for r in ranks]
+    rel = abs(float(r0["log_mdd"]) - ref_mdd) / abs(ref_mdd)
+    z = np.abs(r0["mean"] - as_dsge.TRUE_PARAMS) / np.maximum(r0["std"],
+                                                               1e-9)
+    print(f"# {name}: {len(ranks)} ranks of {n_parts // len(ranks)} "
+          f"particles; ranks bitwise equal: {same}; log-MDD "
+          f"{float(r0['log_mdd']):.10f} (rel. diff {rel:.3e} from (i.1)); "
+          f"max |z| {z.max():.3f}; launches per rank (re, kalman) "
+          f"{launches} (expected {expected} each)")
+    walls = ", ".join(f"{float(r['wall']):.4f}" for r in ranks)
+    print(f"# {name} wall per rank {walls} s ({n_stages} stages); "
+          f"collectives {int(r0['collectives'])} "
+          f"({(int(r0['collectives']) - 2) / n_stages:.4f} per stage, "
+          f"plus the initial and final gathers), bytes from the other ranks "
+          f"{int(r0['bytes'])} ({int(r0['bytes']) / n_stages:.1f} per stage, "
+          f"the two gathers included); host reads per stage "
+          f"{float(r0['host_reads']) / n_stages:.4f}")
+    if not same:
+        raise RuntimeError(f"{name}: the ranks' results differ")
+    if not (rel <= MESH_RTOL
+            and abs(float(r0["log_mdd"]) - REF_LOG_MDD) <= MDD_TOL):
+        raise RuntimeError(f"{name}: log-MDD {float(r0['log_mdd'])} off")
+    if not np.all(z < 4.0):
+        raise RuntimeError(f"{name}: posterior means off: z={z.tolist()}")
+    if any(v != expected for pair in launches for v in pair):
+        raise RuntimeError(f"{name}: a rank did not go through the kernels "
+                           "once per likelihood call")
+
+
+def mesh_phase(dev, res_as):
+    """(i) AS-16k under smc(mesh=particle_mesh()): (i.1) one NCCL rank in
+    this process against the unsharded run of the main path; (i.2) two
+    gloo ranks sharing the card (NCCL takes one rank per card), spawned;
+    (i.3) one NCCL rank per card, where there are two or more."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from smc_tpu_torch.ops import cuda_dsge
+    from smc_tpu_torch.parallel import initialize_multihost, particle_mesh
+
+    run = as_runner(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_multihost(num_processes=1, process_id=0, backend="nccl",
+                             device=dev, store=dist.FileStore(
+                                 os.path.join(tmp, "store"), 1))
+        try:
+            _reset_launches()
+            res, wall = _timed(lambda: run(seed=0, mesh=particle_mesh()))
+            launches = dict(cuda_dsge.LAUNCHES)
+        finally:
+            dist.destroy_process_group()
+    n_stages = len(res.cloud.tempering_schedule) - 1
+    expected = 1 + res.init_rounds + n_stages
+    ll, ll_ref = res.cloud.loglh.cpu().numpy(), \
+        res_as.cloud.loglh.cpu().numpy()
+    bitwise = (res.log_mdd == res_as.log_mdd and np.array_equal(ll, ll_ref)
+               and torch.equal(res.cloud.params, res_as.cloud.params))
+    rel = abs(res.log_mdd - res_as.log_mdd) / abs(res_as.log_mdd)
+    fin = np.isfinite(ll_ref)
+    ll_rel = float(np.max(np.abs(ll[fin] - ll_ref[fin]) / np.abs(ll_ref[fin])))
+    print(f"# (i.1) one NCCL rank: log-MDD {res.log_mdd:.10f} (unsharded "
+          f"{res_as.log_mdd:.10f}, rel. diff {rel:.3e}); final loglh max rel "
+          f"diff {ll_rel:.3e}; bitwise equal to the unsharded run: {bitwise}; "
+          f"launches {launches} (expected {expected} each)")
+    print(f"# (i.1) wall {wall:.4f} s ({n_stages} stages, "
+          f"{1e3 * wall / n_stages:.4f} ms/stage); collectives "
+          f"{res.collectives} ({(res.collectives - 2) / n_stages:.4f} per "
+          f"stage), bytes from other ranks {res.collective_bytes}")
+    if not (rel <= MESH_ONE_RANK_RTOL and ll_rel <= MESH_ONE_RANK_RTOL
+            and np.array_equal(np.isfinite(ll), fin)):
+        raise RuntimeError("(i.1) the one-rank mesh run differs from the "
+                           "unsharded run")
+    if any(v != expected for v in launches.values()):
+        raise RuntimeError("(i.1) the mesh run did not go through the "
+                           "kernels once per likelihood call")
+
+    ranks, wall = _spawn_mesh(2, "gloo", f"cuda:{dev.index}")
+    print(f"# (i.2) two gloo ranks on {dev}: {wall:.4f} s for the spawn, "
+          "the warm-up and the run")
+    _mesh_gates("(i.2) gloo, one card", ranks, res.log_mdd, AS_N_PARTS)
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"# mesh nccl multi-card: not run, {n_cards} card")
+        return
+    world = 1 << (n_cards.bit_length() - 1)     # R must divide 2^14
+    ranks, wall = _spawn_mesh(world, "nccl", "cuda:{rank}")
+    print(f"# (i.3) {world} NCCL ranks, one per card: {wall:.4f} s for the "
+          "spawn, the warm-up and the run")
+    _mesh_gates(f"(i.3) nccl, {world} cards", ranks, res.log_mdd, AS_N_PARTS)
+
+
 def profile_path(out_dir, name, run):
     """Profile one run with torch.profiler: device busy time (the sum of
     the device-side events: one stream, so they do not overlap) against
@@ -906,6 +1099,10 @@ def main(argv=None) -> int:
                     help="also profile one more run each of AS-16k, the "
                          "linear fixture, adaptive AS-16k and one stage of "
                          "SW-4k, and write their tables to DIR")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run the kernel build, the AS main path and phase "
+                         "(i) only (the particle mesh; on a machine with "
+                         "several cards, one NCCL rank per card)")
     args = ap.parse_args(argv)
 
     sys.path.insert(0, HERE)
@@ -930,8 +1127,15 @@ def main(argv=None) -> int:
     for line in ptxas_lines(lib.with_suffix(".log").read_text()):
         print(f"# ptxas {line}")
 
+    if args.mesh_only:
+        _, res_as = main_path(dev)
+        mesh_phase(dev, res_as)
+        print(f"# all phases {time.perf_counter() - t_start:.1f} s (build "
+              "included)")
+        print(json.dumps(_device_line()))
+        return 0
     kernels = kernel_phase(dev)
-    launches = main_path(dev)
+    launches, res_as = main_path(dev)
     lin, res_a = linear_phase(dev)
     adaptive_phase(dev)
     if args.profile:
@@ -953,15 +1157,21 @@ def main(argv=None) -> int:
         profile_path(args.profile, "sw4k", lambda: run_sw(seed=0, n_phi=2))
     as2obs_phase(dev)
     capm_phase(dev)
+    mesh_phase(dev, res_as)
     for k, key in zip(kernels, ("re", "kalman")):
         k["launches"] = launches[key]
     print(f"# all phases {time.perf_counter() - t_start:.1f} s (build "
           "included)")
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(json.dumps(_device_line()))
     return 0
+
+
+def _device_line():
+    import torch
+    return {"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}
 
 
 if __name__ == "__main__":

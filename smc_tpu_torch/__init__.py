@@ -9,7 +9,7 @@ the same name; randomness comes from a draws object (`TorchDraws`, or
 `ReplayDraws` for recorded draws) where the JAX package takes a PRNG key.
 """
 
-from smc_tpu_torch import distributions
+from smc_tpu_torch import distributions, parallel
 from smc_tpu_torch.cloud import (Cloud, weighted_mean, weighted_cov,
                                  weighted_std, weighted_quantile, split_cloud,
                                  join_cloud, add_parameters_to_cloud)
@@ -42,7 +42,7 @@ from smc_tpu_torch.smc import smc, SMCResult, marginal_data_density
 
 __all__ = [
     "smc", "SMCResult", "Cloud", "Parameter", "parameter", "ParamSpace",
-    "distributions", "resample", "mutation", "mvnormal_mixture_draw",
+    "distributions", "parallel", "resample", "mutation", "mvnormal_mixture_draw",
     "initial_draw", "initialize_likelihoods", "one_draw", "draw_likelihood",
     "DegenerateMvNormal", "get_cov", "compute_ess", "incremental_weights",
     "log_incremental_weights", "weighted_mean", "weighted_cov",

@@ -128,10 +128,13 @@ def _shock_cov(thetas: torch.Tensor):
     return Q
 
 
-def an_schorfheide(likelihood_backend: str = "kernel") -> LinearDSGE:
+def an_schorfheide(likelihood_backend: str = "kernel",
+                   mesh=None) -> LinearDSGE:
+    """AS with the CUDA kernels ("kernel") or the plain path ("plain");
+    `mesh` as LinearDSGE takes it (the kernels run per rank either way)."""
     return LinearDSGE(an_schorfheide_parameters(), _system, _measurement,
                       _N_SHOCK, _shock_cov,
-                      likelihood_backend=likelihood_backend)
+                      likelihood_backend=likelihood_backend, mesh=mesh)
 
 
 def _measurement_2obs(thetas: torch.Tensor):

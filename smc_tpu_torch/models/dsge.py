@@ -239,12 +239,18 @@ class LinearDSGE:
     Estimate a DSGE model with smc(model.loglike_batched, ...,
     batched=True). `loglike` evaluates one theta; it is not written for
     torch.func.vmap, which cannot trace the in-place writes of the system
-    functions or bl_gj_solve's row swaps."""
+    functions or bl_gj_solve's row swaps.
+
+    `mesh` is taken as the JAX package's LinearDSGE takes it, where the
+    Pallas kernels under a mesh need a shard_map. Here it changes nothing:
+    under smc(..., mesh=...) each rank calls loglike_batched on its own
+    particle rows, so the kernels launch per rank on the local batch, with
+    no collective inside the likelihood."""
 
     def __init__(self, parameters: List, system_fn: Callable,
                  measurement_fn: Callable, n_shocks: int,
                  shock_cov_fn: Callable, use_chand_recursion: bool = True,
-                 likelihood_backend: str = "kernel"):
+                 likelihood_backend: str = "kernel", mesh=None):
         if likelihood_backend not in ("kernel", "plain"):
             raise ValueError("likelihood_backend must be 'kernel' or 'plain'")
         if likelihood_backend == "kernel" and not use_chand_recursion:
@@ -258,6 +264,7 @@ class LinearDSGE:
         self.n_shocks = n_shocks
         self.use_chand_recursion = use_chand_recursion
         self.likelihood_backend = likelihood_backend
+        self.mesh = mesh
         self._data = (None, None)
 
     def _data_on(self, data, device) -> torch.Tensor:

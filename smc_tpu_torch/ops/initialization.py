@@ -27,11 +27,23 @@ def _eval_batch(space, loglike_batched, draws):
 
 
 def initial_draw(draws, space, loglike_batched: Callable, n_parts: int,
-                 device="cuda", max_rounds: int = 1000) -> Tuple[Cloud, int]:
+                 device="cuda", max_rounds: int = 1000,
+                 sharding=None) -> Tuple[Cloud, int]:
     """n_parts valid prior draws. Returns (cloud, redraw rounds taken);
-    raises after max_rounds rounds."""
+    raises after max_rounds rounds.
+
+    Under a particle mesh (`sharding`, a parallel.mesh.ParticleSharding)
+    every rank draws all n_parts from its (shared) draws, evaluates its own
+    rows and gathers the likelihoods, so every rank sees the same invalid
+    rows; each redraw round then draws and evaluates the fresh rows on
+    every rank, as the one-device run does, and the rank returns its rows
+    of the cloud after the same number of rounds."""
     params = space.sample_prior(draws, n_parts, device=device)
-    loglh, logprior = _eval_batch(space, loglike_batched, params)
+    if sharding is None:
+        loglh, logprior = _eval_batch(space, loglike_batched, params)
+    else:
+        loglh, logprior = sharding.gather(*_eval_batch(
+            space, loglike_batched, params[sharding.rows(n_parts)]))
     invalid = torch.nonzero(~torch.isfinite(loglh)).flatten()
     rounds = 0
     while invalid.numel() > 0:
@@ -49,7 +61,7 @@ def initial_draw(draws, space, loglike_batched: Callable, n_parts: int,
         invalid = invalid[~torch.isfinite(l_new)]
     cloud = Cloud.create(space.n_para, n_parts, device=device)
     cloud.params, cloud.loglh, cloud.logprior = params, loglh, logprior
-    return cloud, rounds
+    return (cloud if sharding is None else sharding.shard(cloud)), rounds
 
 
 def one_draw(draws, space, loglike_batched: Callable, max_rounds: int = 10000,

@@ -12,6 +12,12 @@ Stage functions never touch a generator directly; they ask a draws object for
   here, which makes one stage of the port comparable to one stage of the
   reference to rounding. A request whose kind or shape differs from the next
   recorded entry raises, so a change in draw order cannot pass silently.
+
+Under a particle mesh every rank holds the same draws object with the same
+seed; `ParticleDraws` serves one rank's rows of the per-particle draws the
+mutation makes (drawn at the global size), and everything else (the prior
+draws of the initialization, the resampling draws, the block permutation)
+is drawn whole on every rank.
 """
 
 from __future__ import annotations
@@ -78,6 +84,40 @@ class TorchDraws:
 
     def set_state(self, state) -> None:
         self.generator.set_state(torch.as_tensor(np.asarray(state, np.uint8)))
+
+
+class ParticleDraws:
+    """One rank's view of a shared draws object for per-particle draws
+    under a particle mesh: each request for the rank's `rows` (a slice of
+    `n_parts`) is drawn at the global size and the rank keeps its rows. So
+    every rank's generator advances as the one-device run's does, and the
+    ranks' particles get the one-device run's numbers, not copies of one
+    another's. Only per-particle draws (leading dimension the rank's row
+    count) are served; anything else raises."""
+
+    def __init__(self, draws, rows: slice, n_parts: int):
+        self.draws = draws
+        self.rows = rows
+        self.n_parts = int(n_parts)
+        self.n_local = rows.stop - rows.start
+        self.device = draws.device
+
+    def _global(self, shape) -> Tuple[int, ...]:
+        shape = _shape(shape)
+        if not shape or shape[0] != self.n_local:
+            raise ValueError(f"ParticleDraws serves per-particle draws "
+                             f"(leading dimension {self.n_local}), not "
+                             f"{shape}")
+        return (self.n_parts,) + shape[1:]
+
+    def uniform(self, shape) -> torch.Tensor:
+        return self.draws.uniform(self._global(shape))[self.rows]
+
+    def normal(self, shape) -> torch.Tensor:
+        return self.draws.normal(self._global(shape))[self.rows]
+
+    def categorical(self, probs, n: int) -> torch.Tensor:
+        return self.draws.categorical(probs, self._global(n)[0])[self.rows]
 
 
 class ReplayDraws:

@@ -15,6 +15,10 @@ verbose "low"/"high" read c and the acceptance for the stage line ("high"
 also the parameter table); a checkpoint reads c, the acceptance and the w/W
 columns. On a GPU, `torch.linalg.eigh` in the mutation also waits for the
 device, to check its status.
+
+Under a particle mesh (`mesh=`, parallel/mesh.py) each stage adds two
+collectives: the all-gather of the cloud's rows before the correction and
+the all-gather of the acceptance after the mutation.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from smc_tpu_torch import io as smc_io
 from smc_tpu_torch.cloud import (Cloud, ARRAY_FIELDS, weighted_mean,
                                  weighted_cov, weighted_std)
 from smc_tpu_torch.params import ParamSpace
-from smc_tpu_torch.rng import TorchDraws
+from smc_tpu_torch.rng import TorchDraws, ParticleDraws
 from smc_tpu_torch.ops.correction import correct
 from smc_tpu_torch.ops.schedule import fixed_schedule, solve_adaptive_phi
 from smc_tpu_torch.ops.resample import (resample as resample_indices,
@@ -50,8 +54,9 @@ class SMCResult:
     """Estimation output: the final cloud, the incremental (w) and
     normalized (W) weight matrices [N, n_stages+1] as numpy, the log marginal
     data density, the redraw rounds of the initialization, the explicit
-    host reads the stage loop made, and the Doeblin length (before the cap)
-    of each Metropolis resample."""
+    host reads the stage loop made, the Doeblin length (before the cap) of
+    each Metropolis resample, and under a particle mesh the collectives the
+    run made and the bytes they brought this rank from the others."""
 
     cloud: Cloud
     w: Optional[np.ndarray]
@@ -62,6 +67,8 @@ class SMCResult:
     init_rounds: int = 0
     host_reads: int = 0
     chain_lengths: List[int] = dataclasses.field(default_factory=list)
+    collectives: int = 0
+    collective_bytes: int = 0
 
     def posterior_mean(self) -> np.ndarray:
         return weighted_mean(self.cloud).cpu().numpy()
@@ -91,7 +98,7 @@ def _logistic_c_update(c, accept: torch.Tensor, target: float):
 def make_stage_core(space, loglike_batched, n_blocks, n_mh_steps, alpha,
                     resampling_method, threshold,
                     tempered_update_prior_weight=0.0, log_prob_old_data=0.0,
-                    old_loglike_batched=None):
+                    old_loglike_batched=None, sharding=None):
     """The stage body:
       stage(draws, params, loglh, logprior, old_loglh, weights,
             phi_n, phi_n1, c, read_along=())
@@ -104,7 +111,12 @@ def make_stage_core(space, loglike_batched, n_blocks, n_mh_steps, alpha,
     info["chain_length"]. Everything else stays on the device. A stage
     whose ESS is NaN returns after the correction (smc() raises).
     Draws, in order: the resampling draws only when the stage resamples,
-    the block permutation, then the mutation's draws."""
+    the block permutation, then the mutation's draws.
+
+    Under a particle mesh (`sharding`) the stage takes the whole cloud (the
+    rows every rank gathered) and returns this rank's rows of the particle
+    arrays after mutating only those; inc_w, W_col and accept_mean stay
+    global."""
     mutation_step = make_mutation_step(space, loglike_batched, n_blocks,
                                        n_mh_steps, alpha, old_loglike_batched)
     omega = tempered_update_prior_weight
@@ -117,12 +129,15 @@ def make_stage_core(space, loglike_batched, n_blocks, n_mh_steps, alpha,
         ess, mdd_inc, *read = torch.stack([ess, mdd_inc,
                                            *read_along]).tolist()
         info = {"read": read}
+        n = loglh.shape[0]
+        rows = slice(None) if sharding is None else sharding.rows(n)
         if math.isnan(ess):
             nan = torch.full((), float("nan"), dtype=torch.float64,
                              device=params.device)
-            return (params, loglh, logprior, old_loglh, norm_w,
-                    torch.zeros_like(loglh), inc_w, norm_w, ess, False, nan,
-                    mdd_inc, info)
+            return (params[rows], loglh[rows], logprior[rows],
+                    old_loglh[rows], norm_w[rows],
+                    torch.zeros_like(loglh[rows]), inc_w, norm_w, ess, False,
+                    nan, mdd_inc, info)
         did_resample = ess < threshold
         if did_resample:
             n_iter = None
@@ -140,18 +155,16 @@ def make_stage_core(space, loglike_batched, n_blocks, n_mh_steps, alpha,
         cov = weighted_cov(vals, weights)
         cov = 0.5 * (cov + cov.T)
         perm = draws.permutation(space.n_free)
+        mdraws = draws if sharding is None else ParticleDraws(draws, rows, n)
         params, loglh, logprior, old_loglh, accept = mutation_step(
-            draws, params, loglh, logprior, old_loglh, mu, cov, perm, c,
-            phi_n, phi_n1)
-        return (params, loglh, logprior, old_loglh, weights, accept, inc_w,
-                weights, ess, did_resample, torch.mean(accept), mdd_inc, info)
+            mdraws, params[rows], loglh[rows], logprior[rows],
+            old_loglh[rows], mu, cov, perm, c, phi_n, phi_n1)
+        accept_all = accept if sharding is None else sharding.gather(accept)
+        return (params, loglh, logprior, old_loglh, weights[rows], accept,
+                inc_w, weights, ess, did_resample, torch.mean(accept_all),
+                mdd_inc, info)
 
     return stage
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to smc_tpu_torch yet (ROADMAP.md, {item})")
 
 
 def _on_device(cloud: Cloud, device) -> Cloud:
@@ -237,19 +250,33 @@ def smc(loglikelihood: Callable,
         program to cache (the CUDA kernels' build is cached by _build).
       * `fused=True` (the whole recursion as one device program) raises
         NotImplementedError; `fused_chunk_stages` is accepted and unused.
-      * `mesh` (several devices) raises NotImplementedError.
+      * `mesh` is a particle mesh (parallel.particle_mesh()) over the
+        ranks of a torch.distributed process group, one process per rank,
+        each running this call with the same arguments and seed on its own
+        `device`. n_parts must be divisible by the number of ranks. Each
+        rank holds and mutates N/R particle rows, so its likelihood calls
+        (the kernels, on a card) see only those; every stage gathers the
+        rows once, and every rank computes the stage's decisions from the
+        same data with the one-device code. The result is the one-device
+        run's up to what the likelihood's and the proposal's batch size
+        changes in rounding, and the same on every rank: `cloud` and the
+        w/W matrices are the whole cloud's, and `old_cloud` must be one
+        too. Only rank 0 prints and writes files (checkpoints, `savepath`,
+        `particle_store_path`, the profile); a resume loads the checkpoint
+        on every rank. The collectives are
+        counted in `SMCResult.collectives` and `collective_bytes`, apart
+        from `host_reads`.
     Accepted for parity and unused: `parallel`, `data_vintage`,
     `old_vintage`, `smc_iteration`, `filestring_addl`,
     `intermediate_stage_start`. `testing=True` suppresses the final writes;
     `run_csminwel` warns that no mode polish runs."""
     del parallel, data_vintage, old_vintage, smc_iteration, filestring_addl
     del intermediate_stage_start, aot_cache_dir, fused_chunk_stages
-    if mesh is not None:
-        _not_ported("multi-device runs (mesh)", "Queue A item 7")
     if fused:
-        _not_ported("fused=True (the whole recursion as one device program; "
-                    "its counterpart is a CUDA graph per stage)",
-                    "Queue A item 9")
+        raise NotImplementedError(
+            "fused=True (the whole recursion as one device program; its "
+            "counterpart is a CUDA graph per stage) is not ported to "
+            "smc_tpu_torch yet (ROADMAP.md, Queue A item 10)")
     if resampling_method not in VALID_METHODS:
         raise ValueError(f"resampling_method must be one of {VALID_METHODS}")
     if verbose not in diag.VERBOSITY:
@@ -263,6 +290,13 @@ def smc(loglikelihood: Callable,
                       "polish is not implemented (matching the reference)")
 
     device = torch.device(device)
+    sharding = None
+    if mesh is not None:
+        from smc_tpu_torch.parallel.mesh import particle_sharding
+        sharding = particle_sharding(mesh)
+        sharding.rows(n_parts)          # raises unless R divides n_parts
+    root = sharding is None or sharding.rank == 0
+    shown_verbose = verbose if root else "none"
     space = (parameters if isinstance(parameters, ParamSpace)
              else ParamSpace(parameters, regime_switching=regime_switching))
     if space.n_free == 0:
@@ -294,6 +328,12 @@ def smc(loglikelihood: Callable,
     w_cols: List[torch.Tensor] = []
     W_cols: List[torch.Tensor] = []
 
+    def shard(cloud):
+        return cloud if sharding is None else sharding.shard(cloud)
+
+    def whole(cloud):
+        return cloud if sharding is None else sharding.gather_cloud(cloud)
+
     def reinit_scalars(cloud, tempered):
         cloud.ESS = [cloud.ESS[-1]] if tempered else [float(n_parts)]
         cloud.stage_index = 1
@@ -314,11 +354,14 @@ def smc(loglikelihood: Callable,
         cloud = _on_device(old_cloud, device)
         if omega == 0.0 and cloud.n_parts == n_parts:
             cloud = reinit_scalars(cloud, tempered=True)
-            cloud = initialize_likelihoods(cloud, space, loglike_batched)
+            weights0 = cloud.weights
+            cloud = initialize_likelihoods(shard(cloud), space,
+                                           loglike_batched)
         else:
             # bridge: (1-omega) N resampled old-posterior draws and omega N
             # prior draws whose loglh is evaluated on the old data, then all
-            # evaluated on the new data and resampled
+            # evaluated on the new data and resampled (one-time work, done
+            # whole on every rank of a mesh)
             n_to_resample = int(round((1.0 - omega) * n_parts))
             n_from_prior = n_parts - n_to_resample
             parts = []
@@ -343,11 +386,14 @@ def smc(loglikelihood: Callable,
             cloud.reset_weights()
             cloud.ESS.append(float(n_parts))
             cloud = reinit_scalars(cloud, tempered=True)
+            weights0 = cloud.weights
+            cloud = shard(cloud)
     elif continue_intermediate:
         if not loadpath:
             raise ValueError("continue_intermediate requires loadpath")
         (cloud, w_saved, W_saved, j, phi_prop, log_mdd,
          rng_state) = smc_io.load_checkpoint(loadpath, device=device)
+        cloud = shard(cloud)
         draws.set_state(rng_state)
         as_cols = lambda m: [torch.as_tensor(m[:, k], device=device)
                              for k in range(m.shape[1])]
@@ -359,7 +405,8 @@ def smc(loglikelihood: Callable,
         resampled_last = cloud.ESS[-1] < threshold
     else:
         cloud, init_rounds = initial_draw(draws, space, loglike_batched,
-                                          n_parts, device=device)
+                                          n_parts, device=device,
+                                          sharding=sharding)
         cloud = reinit_scalars(cloud, tempered=False)
 
     cloud.n_phi = n_phi
@@ -367,16 +414,22 @@ def smc(loglikelihood: Callable,
         cloud.tempering_schedule = [float(sched[0])]
     if store_weight_matrices and not continue_intermediate:
         w_cols = [torch.zeros(n_parts, dtype=torch.float64, device=device)]
-        W_cols = [cloud.weights if tempered_update else
+        W_cols = [weights0 if tempered_update else
                   torch.ones(n_parts, dtype=torch.float64, device=device)]
 
     stage = make_stage_core(space, loglike_batched, n_blocks, n_mh_steps,
                             alpha, resampling_method, threshold, omega,
-                            log_prob_old_data, old_loglike_batched)
+                            log_prob_old_data, old_loglike_batched, sharding)
     para_names = list(space.names)
-    diag.init_stage_print(cloud, para_names, verbose=verbose,
+
+    def shown(cloud):
+        """The cloud a stage print shows: the whole one (verbose="high"
+        prints its moments; every rank gathers, rank 0 prints)."""
+        return whole(cloud) if verbose == "high" else cloud
+
+    diag.init_stage_print(shown(cloud), para_names, verbose=shown_verbose,
                           use_fixed_schedule=use_fixed_schedule)
-    diag.vprint(verbose, "low", "SMC recursion starts...")
+    diag.vprint(shown_verbose, "low", "SMC recursion starts...")
 
     c_dev = torch.tensor(c, dtype=torch.float64, device=device)
     accept_rate = torch.tensor(cloud.accept_rate, dtype=torch.float64,
@@ -396,23 +449,25 @@ def smc(loglikelihood: Callable,
             i += 1
             cloud.stage_index = i
             phi_n1 = float(cloud.tempering_schedule[-1])
+            state = (cloud.params, cloud.loglh, cloud.logprior,
+                     cloud.old_loglh, cloud.weights)
+            if sharding is not None:
+                state = sharding.gather(*state)
             if use_fixed_schedule:
                 phi_arg, read_along = float(sched[i - 1]), ()
             else:
                 ess_bar = tempering_target * (
                     float(n_parts) if resampled_last else cloud.ESS[-1])
                 phi_arg, j_dev, prop_dev = solve_adaptive_phi(
-                    cloud.loglh, cloud.weights, cloud.old_loglh, phi_n1,
-                    sched, j, phi_prop, ess_bar)
+                    state[1], state[4], state[3], phi_n1, sched, j, phi_prop,
+                    ess_bar)
                 read_along = (phi_arg, j_dev.to(torch.float64), prop_dev)
             resampled_last = False
             c_dev = _logistic_c_update(c_dev, accept_rate, target)
             (cloud.params, cloud.loglh, cloud.logprior, cloud.old_loglh,
              cloud.weights, cloud.accept, inc_w, W_col, ess, did_resample,
              accept_rate, mdd_inc, info) = stage(
-                draws, cloud.params, cloud.loglh, cloud.logprior,
-                cloud.old_loglh, cloud.weights, phi_arg, phi_n1, c_dev,
-                read_along)
+                draws, *state, phi_arg, phi_n1, c_dev, read_along)
             host_reads += 1
             if use_fixed_schedule:
                 phi_n = phi_arg
@@ -422,9 +477,9 @@ def smc(loglikelihood: Callable,
             cloud.tempering_schedule.append(phi_n)
             cloud.ESS.append(ess)
             if math.isnan(ess):
-                diag.check_nan_ess(cloud, i, inc_w, W_col,
+                diag.check_nan_ess(whole(cloud), i, inc_w, W_col,
                                    savepath or "smc_cloud.npz",
-                                   debug_assertion)
+                                   debug_assertion and root)
             if did_resample:
                 cloud.resamples += 1
                 resampled_last = True
@@ -443,39 +498,55 @@ def smc(loglikelihood: Callable,
                 cloud.c, cloud.accept_rate = torch.stack(
                     [c_dev, accept_rate]).tolist()
                 host_reads += 1
-            diag.end_stage_print(cloud, para_names, verbose=verbose,
+            diag.end_stage_print(shown(cloud), para_names,
+                                 verbose=shown_verbose,
                                  use_fixed_schedule=use_fixed_schedule,
                                  stage_time=dt)
             if run_test and i == 3:
                 break
             if checkpoint:
-                smc_io.save_checkpoint(
-                    savepath, i, cloud, _stack(w_cols, n_parts),
-                    _stack(W_cols, n_parts), j, phi_prop, log_mdd,
-                    draws.get_state())
-                host_reads += 1
+                saved = whole(cloud)
+                if root:
+                    smc_io.save_checkpoint(
+                        savepath, i, saved, _stack(w_cols, n_parts),
+                        _stack(W_cols, n_parts), j, phi_prop, log_mdd,
+                        draws.get_state())
+                    host_reads += 1
+                if sharding is not None:
+                    sharding.barrier()
         if profile_dir:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             profiling.close()
-            os.makedirs(profile_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(profile_dir,
-                                                  "smc_trace.json"))
+            if root:
+                os.makedirs(profile_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(profile_dir,
+                                                      "smc_trace.json"))
 
     cloud.c, cloud.accept_rate = torch.stack([c_dev, accept_rate]).tolist()
+    cloud = whole(cloud)
     w_matrix = W_matrix = None
     if store_weight_matrices:
         w_matrix, W_matrix = _stack(w_cols, n_parts), _stack(W_cols, n_parts)
-    if savepath and not testing:
-        extra = {"w": w_matrix, "W": W_matrix} if store_weight_matrices else {}
-        extra["log_mdd"] = np.asarray(log_mdd)
-        smc_io.save_cloud(savepath, cloud, extra=extra)
-    if particle_store_path and not testing:
-        smc_io.save_particle_store(particle_store_path, cloud)
+    writes = not testing and (savepath or particle_store_path)
+    if writes and root:
+        if savepath:
+            extra = ({"w": w_matrix, "W": W_matrix} if store_weight_matrices
+                     else {})
+            extra["log_mdd"] = np.asarray(log_mdd)
+            smc_io.save_cloud(savepath, cloud, extra=extra)
+        if particle_store_path:
+            smc_io.save_particle_store(particle_store_path, cloud)
+    if writes and sharding is not None:
+        sharding.barrier()
     return SMCResult(cloud=cloud, w=w_matrix, W=W_matrix, log_mdd=log_mdd,
                      para_names=para_names, space=space,
                      init_rounds=init_rounds, host_reads=host_reads,
-                     chain_lengths=chain_lengths)
+                     chain_lengths=chain_lengths,
+                     collectives=0 if sharding is None else
+                     sharding.collectives,
+                     collective_bytes=0 if sharding is None else
+                     sharding.bytes)
 
 
 def _stack(cols: List[torch.Tensor], n_parts: int) -> np.ndarray:

@@ -183,3 +183,33 @@ def test_sw_likelihood_on_card_matches_cpu(dev):
     want_near = model.loglike_batched(th, sw_dsge.load_sw_data())
     assert_sw_loglh_close(np.concatenate([got, got_near.cpu().numpy()]),
                           np.concatenate([want, want_near.numpy()]))
+
+
+def test_one_rank_nccl_mesh_matches_unsharded(dev, tmp_path):
+    """AS on the kernels under a one-rank NCCL particle mesh: the same
+    kernel launches and, to 1e-12, the same run as without the mesh."""
+    import torch.distributed as dist
+    import smc_tpu_torch
+    from smc_tpu_torch.parallel import initialize_multihost, particle_mesh
+    model = tas.an_schorfheide()
+    run = lambda mesh: smc_tpu_torch.smc(
+        model.loglike_batched, tas.an_schorfheide_parameters(),
+        tas.load_as_data(), batched=True, n_parts=1024, n_phi=6, lam=2.0,
+        verbose="none", seed=2, device=dev, mesh=mesh)
+    before = dict(cuda_dsge.LAUNCHES)
+    want = run(None)
+    plain = {k: cuda_dsge.LAUNCHES[k] - before[k] for k in before}
+    initialize_multihost(num_processes=1, process_id=0, backend="nccl",
+                         device=dev,
+                         store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        before = dict(cuda_dsge.LAUNCHES)
+        got = run(particle_mesh())
+        meshed = {k: cuda_dsge.LAUNCHES[k] - before[k] for k in before}
+    finally:
+        dist.destroy_process_group()
+    assert meshed == plain == {k: 1 + want.init_rounds + 5 for k in plain}
+    np.testing.assert_allclose(got.log_mdd, want.log_mdd, rtol=1e-12)
+    np.testing.assert_allclose(got.cloud.loglh.cpu().numpy(),
+                               want.cloud.loglh.cpu().numpy(), rtol=1e-12)
+    assert got.collectives == 2 * 5 + 2

@@ -19,8 +19,6 @@ import smc_tpu_torch
 from smc_tpu_torch.params import ParamSpace, ARRAY_FIELDS
 from smc_tpu_torch.cloud import weighted_cov
 from smc_tpu_torch.smc import make_stage_core
-from smc_tpu_torch.ops.correction import correct
-from smc_tpu_torch.ops.resample import resample
 from smc_tpu_torch.ops.schedule import fixed_schedule
 from smc_tpu_torch.rng import ReplayDraws
 from smc_tpu_torch.models import as_dsge as tas
@@ -28,32 +26,8 @@ from smc_tpu_torch.models.regression import (regression_parameters,
                                              make_regression_loglike,
                                              generate_regression_data)
 
-from torch_parity import as_posterior_draws
-from torch_replay import replay_mutation
-
-
-def _stage_replay(skey, tspace, state, phi_n, phi_n1, threshold, resampled):
-    """Replay entries for one port stage from the JAX stage key: the
-    resampling uniform (only if the stage resamples), the permutation, the
-    mutation draws (sign-matched to the port's own block covariance)."""
-    kr, kp, km = jax.random.split(skey, 3)
-    params, loglh, logprior, old, weights = state
-    _, norm_w, ess, _ = correct(loglh, old, weights, phi_n, phi_n1)
-    assert bool(ess < threshold) == resampled
-    entries = []
-    w = norm_w
-    if resampled:
-        u = np.asarray(jax.random.uniform(kr, (), dtype=jnp.float64))
-        entries.append(("uniform", u))
-        params = params[resample(ReplayDraws([("uniform", u)]), norm_w)]
-        w = torch.ones_like(norm_w)
-    perm = np.asarray(jax.random.permutation(kp, tspace.n_free))
-    entries.append(("permutation", perm))
-    cov = weighted_cov(params[:, torch.as_tensor(tspace.free_inds)], w)
-    cov = (0.5 * (cov + cov.T)).numpy()
-    entries += replay_mutation(km, params.shape[0], cov, perm,
-                               [tspace.n_free], 0.9)
-    return entries
+from torch_parity import StubMesh, as_posterior_draws
+from torch_replay import stage_replay
 
 
 def test_three_stages_match_jax_stage_core():
@@ -89,7 +63,7 @@ def test_three_stages_match_jax_stage_core():
         jout = jstage(skey, *jstate, phi_n, phi_n1, 0.3)
         did = bool(jout[9])
         resampled_any.append(did)
-        draws = ReplayDraws(_stage_replay(skey, tspace, tstate, phi_n, phi_n1,
+        draws = ReplayDraws(stage_replay(skey, tspace, tstate, phi_n, phi_n1,
                                           threshold, did))
         tout = tstage(draws, *tstate, phi_n, phi_n1, 0.3)
         assert draws.remaining() == 0
@@ -194,12 +168,17 @@ def test_same_seed_runs_are_bitwise_equal():
     assert not torch.equal(a.cloud.params, c.cloud.params)
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object()), dict(fused=True)])
-def test_unported_paths_raise(kwargs):
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(mesh=StubMesh(2), n_parts=401), ValueError, "divisible"),
+    (dict(fused=True), NotImplementedError, "ROADMAP")])
+def test_unported_paths_raise(kwargs, error, match):
+    """fused=True is not ported; a mesh whose size does not divide n_parts
+    is refused before anything runs."""
     y, x = generate_regression_data(n=10, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    kwargs = dict(dict(n_parts=10), **kwargs)
+    with pytest.raises(error, match=match):
         smc_tpu_torch.smc(make_regression_loglike(x), regression_parameters(),
-                          y, n_parts=10, n_phi=3, device="cpu", **kwargs)
+                          y, n_phi=3, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -38,6 +38,7 @@ from smc_tpu_torch.models.regression import (regression_parameters,
                                              make_regression_loglike,
                                              generate_regression_data)
 
+from torch_parity import StubMesh
 from torch_replay import _eigh_signs, replay_mutation
 
 TOL = 1e-12
@@ -47,6 +48,12 @@ def test_every_jax_export_is_here():
     assert set(smc_tpu.__all__) <= set(smc_tpu_torch.__all__)
     for name in smc_tpu_torch.__all__:
         assert getattr(smc_tpu_torch, name) is not None, name
+    from smc_tpu import parallel as jparallel
+    from smc_tpu_torch.parallel import mesh as tmesh
+    assert jparallel.__all__ == smc_tpu_torch.parallel.__all__
+    for name in smc_tpu_torch.parallel.__all__:
+        assert callable(getattr(smc_tpu_torch.parallel, name)), name
+    assert tmesh.PARTICLE_AXIS == jparallel.mesh.PARTICLE_AXIS
 
 
 def test_smc_accepts_every_jax_kwarg():
@@ -95,11 +102,11 @@ def test_same_seed_same_run(regression):
     assert not torch.equal(a.cloud.params, c.cloud.params)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh=object()), "Queue A item 7"),
-    (dict(fused=True), "Queue A item 9")])
-def test_refused_kwargs_raise(regression, kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(mesh=StubMesh(3)), ValueError, "divisible by the mesh size 3"),
+    (dict(fused=True), NotImplementedError, "Queue A item 10")])
+def test_refused_kwargs_raise(regression, kwargs, error, match):
+    with pytest.raises(error, match=match):
         _run(regression, **kwargs)
 
 

@@ -77,3 +77,21 @@ def tiny_system(N=64, seed=5):
     H = np.tile((0.1 * np.eye(3))[:, :, None], (1, 1, N))
     data = rng.standard_normal((3, 5))
     return A, B, C, D, Q, Z, d, H, data
+
+
+class StubMesh:
+    """What smc() reads of a particle mesh of `size` ranks before its first
+    collective (a DeviceMesh needs a process group)."""
+    mesh_dim_names = ("parts",)
+
+    def __init__(self, size):
+        self._size = size
+
+    def size(self):
+        return self._size
+
+    def get_local_rank(self, dim):
+        return 0
+
+    def get_group(self, dim):
+        return None

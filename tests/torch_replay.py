@@ -11,6 +11,11 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from smc_tpu_torch.cloud import weighted_cov
+from smc_tpu_torch.ops.correction import correct
+from smc_tpu_torch.ops.resample import resample
+from smc_tpu_torch.rng import ReplayDraws
+
 
 def _eigh_signs(cov_b):
     Uj = np.asarray(jnp.linalg.eigh(jnp.asarray(cov_b))[1])
@@ -41,4 +46,30 @@ def replay_mutation(key, n, cov_free, perm, sizes, alpha):
             entries += [("normal", eps * s)]
         entries.append(("uniform", np.asarray(jax.random.uniform(
             ku, (n,), dtype=jnp.float64))))
+    return entries
+
+
+def stage_replay(skey, tspace, state, phi_n, phi_n1, threshold, resampled,
+                 alpha=0.9):
+    """Replay entries for one port stage (one block) from the JAX stage
+    key: the resampling uniform (only if the stage resamples), the
+    permutation, the mutation draws (sign-matched to the port's own block
+    covariance)."""
+    kr, kp, km = jax.random.split(skey, 3)
+    params, loglh, logprior, old, weights = state
+    _, norm_w, ess, _ = correct(loglh, old, weights, phi_n, phi_n1)
+    assert bool(ess < threshold) == resampled
+    entries = []
+    w = norm_w
+    if resampled:
+        u = np.asarray(jax.random.uniform(kr, (), dtype=jnp.float64))
+        entries.append(("uniform", u))
+        params = params[resample(ReplayDraws([("uniform", u)]), norm_w)]
+        w = torch.ones_like(norm_w)
+    perm = np.asarray(jax.random.permutation(kp, tspace.n_free))
+    entries.append(("permutation", perm))
+    cov = weighted_cov(params[:, torch.as_tensor(tspace.free_inds)], w)
+    cov = (0.5 * (cov + cov.T)).numpy()
+    entries += replay_mutation(km, params.shape[0], cov, perm,
+                               [tspace.n_free], alpha)
     return entries
