@@ -10,10 +10,19 @@ smc_tpu_torch.smc on the card, then the rest of smc()'s paths:
   (e) tempered update and bridge distribution from half the linear data;
   (f) Smets-Wouters at 4,096 particles (the reference's production model);
   (g) An-Schorfheide on two observables at 16,384 particles;
-  (h) CAPM at three seeds;
+  (h) CAPM at five seeds;
   (i) the particle mesh: AS-16k under smc(mesh=particle_mesh()) on one
       NCCL rank, on two gloo ranks sharing the card, and on one NCCL rank
-      per card where there are two or more.
+      per card where there are two or more;
+  (j) the fused recursion against the host loop: AS-16k, adaptive AS-16k and
+      the linear fixture again with fused=False at the same seeds (bit for
+      bit), SW and AS-2obs timed both ways, and the Jacobi eigh kernel
+      against torch.linalg.eigh at the mutation's block shapes.
+
+The main path and phases (a), (b), (e)-(h) run the fused recursion, smc()'s
+automatic choice at verbose="none": each stage a replay of one captured
+CUDA graph. (c) Metropolis and (i) the mesh run the host loop, by the same
+choice; (d) checkpoints, so it runs the host loop too.
 
     python3 chip_smoke.py                 # all phases
     python3 chip_smoke.py --profile DIR   # also profile AS, adaptive AS,
@@ -22,12 +31,14 @@ smc_tpu_torch.smc on the card, then the rest of smc()'s paths:
                                           # phase (i) alone
 
 Needs one CUDA card and nvcc (the kernels are built from csrc/ at first
-use). Every phase raises on failure and the script exits nonzero; it never
-falls back to the CPU. The line before the last is a JSON object with each
-kernel's launches on the main path, error against its plain version, time
-(the mean of 20 back-to-back calls), its plain version's time and its bound
-(the least time for the work these inputs need, from the f64 peak and the
-memory rate); the last line is {"ok": true, "device": {...}}.
+use, one nvcc per source, all at once). Every phase raises on failure and
+the script exits nonzero; it never falls back to the CPU. The line before
+the last is a JSON object with each kernel's launches on the main path,
+error against its plain version, time (the mean of 20 back-to-back calls),
+its plain version's time, its bound (the least time for the work these
+inputs need, from the f64 peak and the memory rate) and the library call's
+time where one PyTorch call computes the same function; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -77,7 +88,7 @@ REF_LOG_MDD_AS2 = -946.9788833516116
 # CAPM at the JAX package's tests/test_capm.py configuration
 CAPM_CONFIG = dict(n_parts=5_000, n_phi=100, lam=2.1, alpha=0.9,
                    resampling_method="systematic", verbose="none")
-CAPM_SEEDS = (42, 0, 1)
+CAPM_SEEDS = (42, 0, 1, 2, 3)
 CAPM_TRUE = (0.1, 0.8, 0.5, 0.2, 1.0, 0.5, 0.3, 1.2, 0.5)
 # likelihood bands of tests/torch_parity.py (card against CPU), and the
 # wider tail of SW's Chandrasekhar recursion (tests/test_torch_sw.py)
@@ -112,8 +123,9 @@ def ptxas_lines(log: str):
         if m:
             k = re.search(r"(re_kernel|kalman_kernel)ILi(\d+)ELi(\d+)E",
                           m.group(1))
-            name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>"
-                    if k else m.group(1))
+            name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else
+                    "eigh_kernel" if "eigh_kernel" in m.group(1) else
+                    m.group(1))
         elif "spill stores" in line:
             frame = line.split(":", 1)[-1].strip()
         elif "Used" in line and "registers" in line and name:
@@ -138,6 +150,35 @@ def cuda_ms(fn, reps: int, batches: int = 5) -> float:
         start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps: int, batches: int = 5) -> float:
+    """Device time per call of fn: `reps` calls captured in one CUDA graph
+    after a warm-up call, the median over `batches` replays between two
+    CUDA events, divided by `reps`. A replay issues no host work per call,
+    so a kernel that takes less time than its wrapper's host code (where
+    cuda_ms measures the host) shows its own time."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
@@ -437,7 +478,7 @@ def as_runner(dev):
 def main_path(dev):
     import numpy as np
     from smc_tpu_torch.models import as_dsge
-    from smc_tpu_torch.ops import cuda_dsge
+    from smc_tpu_torch.ops import cuda_dsge, cuda_eigh
 
     run = as_runner(dev)
     # a 2-stage run first pays the process's one-time costs (CUDA module
@@ -446,15 +487,19 @@ def main_path(dev):
     print(f"# warm-up (2 stages, first use in this process) {wall:.4f} s")
     _reset_launches()
     res, wall = _timed(lambda: run(seed=0))
-    launches = dict(cuda_dsge.LAUNCHES)
+    launches = dict(cuda_dsge.LAUNCHES, **cuda_eigh.LAUNCHES)
     n_stages = len(res.cloud.tempering_schedule) - 1
     expected = 1 + res.init_rounds + n_stages
     print(f"# AS estimation: {n_stages} stages, {res.init_rounds} redraw "
-          f"rounds, launches {launches} (expected {expected} each)")
-    if n_stages != AS_N_PHI - 1 or any(v != expected
-                                       for v in launches.values()):
+          f"rounds, launches {launches} (expected {expected} of re and "
+          f"kalman, {n_stages} of eigh: one block, one MH step)")
+    if n_stages != AS_N_PHI - 1 or any(launches[k] != expected
+                                       for k in cuda_dsge.LAUNCHES):
         raise RuntimeError("the main path did not go through the kernels "
                            "once per likelihood call")
+    if launches["eigh"] != n_stages:
+        raise RuntimeError("the main path did not factor the proposal "
+                           "through the eigh kernel once per stage")
     mu, sd = res.posterior_mean(), res.posterior_std()
     z = np.abs(mu - as_dsge.TRUE_PARAMS) / np.maximum(sd, 1e-9)
     print(f"# log-MDD {res.log_mdd:.4f} (JAX package {REF_LOG_MDD}); "
@@ -468,14 +513,26 @@ def main_path(dev):
         raise RuntimeError(f"posterior means off: z={z.tolist()}")
     print(f"# AS wall {wall:.4f} s, {1e3 * wall / n_stages:.4f} ms/stage, "
           f"{AS_N_PARTS * n_stages / wall:.1f} mutations/s, host reads per "
-          f"stage {res.host_reads / n_stages:.4f}")
-    return launches, res
+          f"stage {res.host_reads / n_stages:.4f}; {_loop_kind(res)}")
+    if not res.fused:
+        raise RuntimeError("the main path did not run the fused recursion")
+    return launches, res, wall
+
+
+def _loop_kind(res) -> str:
+    """Which stage loop ran, and a fused run's capture time and masked
+    stages."""
+    if not res.fused:
+        return "host loop"
+    return (f"fused (graph capture {res.capture_seconds:.4f} s, "
+            f"{res.masked_stages} masked stages)")
 
 
 def _reset_launches():
-    from smc_tpu_torch.ops import cuda_dsge
-    for k in cuda_dsge.LAUNCHES:
-        cuda_dsge.LAUNCHES[k] = 0
+    from smc_tpu_torch.ops import cuda_dsge, cuda_eigh
+    for counts in (cuda_dsge.LAUNCHES, cuda_eigh.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _timed(run):
@@ -532,8 +589,8 @@ def linear_phase(dev):
     print(f"# (a) linear wall {wall:.4f} s, {n_stages} stages, "
           f"{1e3 * wall / n_stages:.4f} ms/stage, "
           f"{LIN_N_PARTS * n_stages / wall:.1f} mutations/s, host reads per "
-          f"stage {res.host_reads / n_stages:.4f}")
-    return (data, X, ll, exact), res
+          f"stage {res.host_reads / n_stages:.4f}; {_loop_kind(res)}")
+    return (data, X, ll, exact), res, wall
 
 
 ADAPTIVE = dict(use_fixed_schedule=False, tempering_target=0.97)
@@ -546,6 +603,7 @@ def adaptive_phase(dev):
     from smc_tpu_torch.models import as_dsge
     from smc_tpu_torch.ops import cuda_dsge
     from smc_tpu_torch.ops.schedule import solve_adaptive_phi, fixed_schedule
+    from smc_tpu_torch.smc import LOOKAHEAD
 
     run = as_runner(dev)
     _reset_launches()
@@ -553,16 +611,21 @@ def adaptive_phase(dev):
     launches = dict(cuda_dsge.LAUNCHES)
     sched = np.asarray(res.cloud.tempering_schedule)
     n_stages = len(sched) - 1
-    expected = 1 + res.init_rounds + n_stages
+    # a masked stage (a replay past phi = 1) launches the kernels too
+    expected = 1 + res.init_rounds + n_stages + res.masked_stages
     print(f"# (b) adaptive AS: {n_stages} stages (the JAX package took 220), "
-          f"launches {launches} (expected {expected} each), wall "
+          f"launches {launches} (expected {expected} each, "
+          f"{res.masked_stages} of them masked stages), wall "
           f"{wall:.4f} s, {1e3 * wall / n_stages:.4f} ms/stage, host reads "
-          f"per stage {res.host_reads / n_stages:.4f}")
+          f"per stage {res.host_reads / n_stages:.4f}; {_loop_kind(res)}")
     if not (np.all(np.diff(sched) > 0) and sched[-1] == 1.0):
         raise RuntimeError("adaptive schedule does not rise strictly to 1")
     if any(v != expected for v in launches.values()):
         raise RuntimeError("the adaptive path did not go through the kernels "
                            "once per likelihood call")
+    if not (res.fused and res.masked_stages <= LOOKAHEAD):
+        raise RuntimeError(f"(b) fused {res.fused}, {res.masked_stages} "
+                           f"masked stages (at most {LOOKAHEAD})")
     mu, sd = res.posterior_mean(), res.posterior_std()
     z = np.abs(mu - as_dsge.TRUE_PARAMS) / np.maximum(sd, 1e-9)
     print(f"# (b) log-MDD {res.log_mdd:.4f} (JAX package "
@@ -589,6 +652,7 @@ def adaptive_phase(dev):
     print(f"# (b) solve_adaptive_phi: {1e3 * t_host:.4f} ms of host time "
           f"per call (enqueue), {1e3 * t_all:.4f} ms per call to completion "
           f"(20 calls)")
+    return res, wall
 
 
 def metropolis_phase(dev, lin):
@@ -766,7 +830,7 @@ def _run_line(name, res, wall, n_parts):
     print(f"# {name} wall {wall:.4f} s, {n_stages} stages, "
           f"{1e3 * wall / n_stages:.4f} ms/stage, "
           f"{n_parts * n_stages / wall:.1f} mutations/s, host reads per "
-          f"stage {res.host_reads / n_stages:.4f}")
+          f"stage {res.host_reads / n_stages:.4f}; {_loop_kind(res)}")
 
 
 def sw_runner(dev):
@@ -846,11 +910,12 @@ def as2obs_phase(dev):
     card_vs_cpu(dev, "(g) AS-2obs", model,
                 prior_draws(as_dsge.an_schorfheide_parameters(), AS_N_PARTS),
                 data, TAIL_RTOL)
+    return res, wall
 
 
 def capm_phase(dev):
     """(h) CAPM at the JAX package's tests/test_capm.py configuration,
-    seeds 42, 0 and 1: the median over the seeds of each parameter's |z|
+    seeds 42 and 0-3: the median over the seeds of each parameter's |z|
     below 5, and every log-MDD finite."""
     import numpy as np
     import smc_tpu_torch
@@ -1059,6 +1124,171 @@ def mesh_phase(dev, res_as):
           "spawn, the warm-up and the run")
     _mesh_gates(f"(i.3) nccl, {world} cards", ranks, res.log_mdd, AS_N_PARTS)
 
+# (j) SW is timed both ways on a cut run (20 stages of the n_phi=100
+# schedule's spacing would change the run; n_phi=21 keeps its configuration
+# otherwise); the full fused SW run is phase (f)
+SW_J_N_PHI = 21
+# the CPU body's tolerances (tests/test_torch_kernel_body_cpu.py)
+EIGH_TOL = 1e-12
+
+
+def _equal_runs(a, b) -> bool:
+    """Two runs bit for bit: cloud, weights, log-MDD, w/W, schedule, ESS,
+    resamples and c."""
+    import torch
+    return (_same_run(a, b)
+            and torch.equal(a.cloud.loglh, b.cloud.loglh)
+            and a.cloud.ESS == b.cloud.ESS
+            and a.cloud.resamples == b.cloud.resamples
+            and a.cloud.c == b.cloud.c)
+
+
+def _both_line(name, fused, f_wall, host, h_wall):
+    n_f = len(fused.cloud.tempering_schedule) - 1
+    n_h = len(host.cloud.tempering_schedule) - 1
+    same = _equal_runs(fused, host)
+    print(f"# (j) {name}: fused {f_wall:.4f} s ({n_f} stages, "
+          f"{1e3 * f_wall / n_f:.4f} ms/stage, graph capture "
+          f"{fused.capture_seconds:.4f} s, host reads per stage "
+          f"{fused.host_reads / n_f:.4f}, masked stages "
+          f"{fused.masked_stages}); host loop {h_wall:.4f} s ({n_h} stages, "
+          f"{1e3 * h_wall / n_h:.4f} ms/stage, host reads per stage "
+          f"{host.host_reads / n_h:.4f}); host loop / fused "
+          f"{h_wall / f_wall:.4f}; bit for bit equal: {same}")
+    if not (fused.fused and not host.fused):
+        raise RuntimeError(f"(j) {name}: the two loops did not run as asked")
+    return same
+
+
+def fused_phase(dev, res_as, wall_as, res_a, wall_a, res_b, wall_b, lin,
+                res_g, wall_g):
+    """(j) The host loop (fused=False) at the seeds of the main path, (b)
+    and (a): each equal to its fused run bit for bit. AS-2obs against
+    (g)'s fused run, and SW on a cut run both ways, timed (equality
+    printed, not gated). Returns SW's cut cloud for the eigh shapes."""
+    import smc_tpu_torch
+    from smc_tpu_torch.models import as_dsge
+    from smc_tpu_torch.models.linear import linear_parameters
+    print(f"# (j) {smi_line()}")
+    run = as_runner(dev)
+    host, wall = _timed(lambda: run(seed=0, fused=False))
+    gated = [("AS-16k fixed", _both_line("AS-16k fixed", res_as, wall_as,
+                                         host, wall))]
+    host, wall = _timed(lambda: run(seed=0, fused=False, **ADAPTIVE))
+    gated.append(("adaptive AS-16k", _both_line(
+        "adaptive AS-16k", res_b, wall_b, host, wall)))
+    data, _, ll, _ = lin
+    host, wall = _timed(lambda: smc_tpu_torch.smc(
+        ll, linear_parameters(), data, **LIN_CONFIG, seed=0, device=dev,
+        fused=False))
+    gated.append(("linear-32k", _both_line("linear-32k", res_a, wall_a, host,
+                                           wall)))
+    model2, data2 = as_dsge.an_schorfheide_2obs(), as_dsge.load_as_data()[:2]
+    host, wall = _timed(lambda: smc_tpu_torch.smc(
+        model2.loglike_batched, as_dsge.an_schorfheide_parameters(), data2,
+        **AS_CONFIG, seed=0, device=dev, fused=False))
+    _both_line("AS-2obs-16k", res_g, wall_g, host, wall)
+    _, _, run_sw = sw_runner(dev)
+    sw_f, wall_f = _timed(lambda: run_sw(seed=0, n_phi=SW_J_N_PHI))
+    sw_h, wall_h = _timed(lambda: run_sw(seed=0, n_phi=SW_J_N_PHI,
+                                         fused=False))
+    _both_line(f"SW-4k (n_phi={SW_J_N_PHI})", sw_f, wall_f, sw_h, wall_h)
+    bad = [name for name, same in gated if not same]
+    if bad:
+        raise RuntimeError(f"(j) fused and host loop differ: {bad}")
+    return sw_f
+
+
+def eigh_bound(ks):
+    """The least time for the symmetric eigendecompositions, with vectors,
+    of matrices of these sizes, whatever the method: about 9 k^3 flop per
+    matrix (the symmetric QR algorithm with the vectors accumulated, Golub
+    and Van Loan), and each matrix read once, its eigenvalues and vectors
+    written once."""
+    flop = sum(9 * k ** 3 for k in ks)
+    nbytes = sum(8 * (2 * k * k + k) for k in ks)
+    return bound_ms(flop, nbytes)
+
+
+def eigh_gates(name, a):
+    """The Jacobi eigh kernel against torch.linalg.eigh on one matrix on the
+    card: eigenvalues within 1e-12 max|lam|, U diag(lam) U' within 1e-12 of
+    A normwise, U'U within 1e-12 of I, _deg_factor's kept eigenvalues
+    equal. Raises if one fails; returns the eigenvalues' max abs error."""
+    import torch
+    from smc_tpu_torch.ops import cuda_eigh
+    k = a.shape[0]
+    lam, u = cuda_eigh.eigh(a)
+    lam_l = torch.linalg.eigh(a)[0]
+    scale = lam_l.abs().max()
+    e_lam = ((lam - lam_l).abs().max() / scale).item()
+    e_rec = (torch.linalg.matrix_norm(u @ torch.diag(lam) @ u.T - a)
+             / torch.linalg.matrix_norm(a)).item()
+    e_orth = (u.T @ u - torch.eye(k, dtype=a.dtype, device=a.device)
+              ).abs().max().item()
+    keep = lambda x: x > 1e-12 * x.max().clamp(min=1e-300)
+    same_keep = torch.equal(keep(lam), keep(lam_l))
+    if not (e_lam <= EIGH_TOL and e_rec <= EIGH_TOL and e_orth <= EIGH_TOL
+            and same_keep):
+        raise RuntimeError(f"(j) eigh {name} k={k}: eigenvalues {e_lam:.3e}, "
+                           f"reconstruction {e_rec:.3e}, orthogonality "
+                           f"{e_orth:.3e}, keep {same_keep}")
+    return (lam - lam_l).abs().max().item()
+
+
+def eigh_phase(dev, clouds):
+    """(j) The Jacobi eigh kernel against torch.linalg.eigh on the card at
+    the mutation's block shapes, from the posterior clouds: AS's 13x13 (one
+    block), the linear fixture's three 3x3 and SW's three 12x12, with
+    eigh_gates; then one SPD 100x100 (seed 0), past the kernel's
+    shared-memory size. Times per call (kernel, plain, library) and the
+    bound. Returns the kernels-line entry at AS's shape."""
+    import numpy as np
+    import torch
+    from smc_tpu_torch.cloud import weighted_cov
+    from smc_tpu_torch.ops import cuda_eigh
+    from smc_tpu_torch.ops.mutation import block_sizes
+    entry = None
+    for name, cloud, space, n_blocks in clouds:
+        vals = cloud.params[:, torch.as_tensor(space.free_inds, device=dev)]
+        cov = weighted_cov(vals, cloud.weights)
+        cov = 0.5 * (cov + cov.T)
+        offs = np.concatenate([[0], np.cumsum(block_sizes(space.n_free,
+                                                          n_blocks))])
+        mats = [cov[o:e, o:e].contiguous() for o, e in zip(offs[:-1],
+                                                          offs[1:])]
+        err = max(eigh_gates(name, a) for a in mats)
+        k = mats[0].shape[0]
+        a = mats[0]
+        ms = cuda_ms(lambda: cuda_eigh.eigh(a), 20)
+        in_graph_ms = graph_ms(lambda: cuda_eigh.eigh(a), 20)
+        plain_ms = cuda_ms(lambda: cuda_eigh.eigh_plain(a), 20)
+        lib_ms = cuda_ms(lambda: torch.linalg.eigh(a), 20)
+        bound, by = eigh_bound([k])
+        print(f"# (j) eigh {name}: {len(mats)} block(s) of k={k}, max abs "
+              f"err of the eigenvalues {err:.3e}, all gates held; per call "
+              f"kernel {ms:.4f} ms ({in_graph_ms:.4f} ms replayed from a "
+              f"CUDA graph), plain {plain_ms:.4f} ms, "
+              f"torch.linalg.eigh {lib_ms:.4f} ms, bound {bound:.8f} ms "
+              f"({by}); per stage ({len(mats)} calls) "
+              f"kernel {len(mats) * ms:.4f} ms, library "
+              f"{len(mats) * lib_ms:.4f} ms")
+        if entry is None:
+            entry = dict(name="eigh_jacobi", route="cuda",
+                         source="smc_tpu_torch/csrc/eigh_kernel.cu",
+                         replaces="smc_tpu/ops/mutation.py:76",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    x = np.random.default_rng(0).standard_normal((100, 103))
+    big = torch.as_tensor(x @ x.T, device=dev)
+    err = eigh_gates("SPD", big)
+    ms = cuda_ms(lambda: cuda_eigh.eigh(big), 5)
+    print(f"# (j) eigh SPD k=100 (global workspace): max abs err of the "
+          f"eigenvalues {err:.3e}, all gates held; kernel {ms:.4f} ms, "
+          f"torch.linalg.eigh {cuda_ms(lambda: torch.linalg.eigh(big), 5):.4f}"
+          f" ms")
+    return entry
+
 
 def profile_path(out_dir, name, run):
     """Profile one run with torch.profiler: device busy time (the sum of
@@ -1122,22 +1352,24 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     t_start = t0 = time.perf_counter()
-    lib = _build.build_cuda_library()
-    print(f"# kernel build {time.perf_counter() - t0:.2f} s ({lib.name})")
-    for line in ptxas_lines(lib.with_suffix(".log").read_text()):
-        print(f"# ptxas {line}")
+    libs = _build.build_cuda_libraries()
+    print(f"# kernel build {time.perf_counter() - t0:.2f} s, one nvcc per "
+          f"source in parallel ({', '.join(p.name for p in libs.values())})")
+    for lib in libs.values():
+        for line in ptxas_lines(lib.with_suffix(".log").read_text()):
+            print(f"# ptxas {line}")
 
     if args.mesh_only:
-        _, res_as = main_path(dev)
+        _, res_as, _ = main_path(dev)
         mesh_phase(dev, res_as)
         print(f"# all phases {time.perf_counter() - t_start:.1f} s (build "
               "included)")
         print(json.dumps(_device_line()))
         return 0
     kernels = kernel_phase(dev)
-    launches, res_as = main_path(dev)
-    lin, res_a = linear_phase(dev)
-    adaptive_phase(dev)
+    launches, res_as, wall_as = main_path(dev)
+    lin, res_a, wall_a = linear_phase(dev)
+    res_b, wall_b = adaptive_phase(dev)
     if args.profile:
         import smc_tpu_torch
         from smc_tpu_torch.models.linear import linear_parameters
@@ -1155,10 +1387,16 @@ def main(argv=None) -> int:
     if args.profile:
         _, _, run_sw = sw_runner(dev)
         profile_path(args.profile, "sw4k", lambda: run_sw(seed=0, n_phi=2))
-    as2obs_phase(dev)
+    res_g, wall_g = as2obs_phase(dev)
     capm_phase(dev)
     mesh_phase(dev, res_as)
-    for k, key in zip(kernels, ("re", "kalman")):
+    res_sw = fused_phase(dev, res_as, wall_as, res_a, wall_a, res_b, wall_b,
+                         lin, res_g, wall_g)
+    kernels.append(eigh_phase(dev, [
+        ("AS-16k", res_as.cloud, res_as.space, AS_CONFIG["n_blocks"]),
+        ("linear-32k", res_a.cloud, res_a.space, LIN_CONFIG["n_blocks"]),
+        ("SW-4k", res_sw.cloud, res_sw.space, SW_CONFIG["n_blocks"])]))
+    for k, key in zip(kernels, ("re", "kalman", "eigh")):
         k["launches"] = launches[key]
     print(f"# all phases {time.perf_counter() - t_start:.1f} s (build "
           "included)")

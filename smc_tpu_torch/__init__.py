@@ -2,11 +2,14 @@
 for the DSGE likelihood (a port of the JAX package smc_tpu).
 
 Plain tensor code runs on any device; the DSGE likelihood launches the
-kernels of ops/cuda_dsge.py on CUDA tensors and their plain versions on CPU
-tensors. Nothing here imports jax, and importing sets no global default
-device or dtype. Every name of smc_tpu's public surface is exported under
-the same name; randomness comes from a draws object (`TorchDraws`, or
-`ReplayDraws` for recorded draws) where the JAX package takes a PRNG key.
+kernels of ops/cuda_dsge.py, and the mutation's eigendecomposition the
+kernel of ops/cuda_eigh.py, on CUDA tensors, and their plain versions on
+CPU tensors. smc() runs the fused recursion by default (on a card, each
+stage a replay of one captured CUDA graph). Nothing here imports jax, and
+importing sets no global default device or dtype. Every name of smc_tpu's
+public surface is exported under the same name; randomness comes from a
+draws object (`TorchDraws`, or `ReplayDraws` for recorded draws) where the
+JAX package takes a PRNG key.
 """
 
 from smc_tpu_torch import distributions, parallel

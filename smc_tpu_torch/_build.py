@@ -1,16 +1,19 @@
 """Build the hand-written kernels from csrc/ into shared libraries.
 
-The CUDA library is compiled by nvcc for sm_90a (Hopper) into a plain-C
-shared library that ops/cuda_dsge.py loads with ctypes; no PyTorch headers
-are involved, so a build takes seconds. It happens at first use, into
+Each CUDA source is compiled by nvcc for sm_90a (Hopper) into a plain-C
+shared library that its wrapper loads with ctypes: dsge_kernels.cu for
+ops/cuda_dsge.py, eigh_kernel.cu for ops/cuda_eigh.py. No PyTorch headers
+are involved, so a build takes seconds; `build_cuda_libraries` runs one
+nvcc per source, all at once. It happens at first use, into
 smc_tpu_torch/_build/, under a name keyed by a hash of the sources and flags
 (an edit rebuilds). Each build writes a temporary file and renames it into
 place, so concurrent builds cannot leave a partial library behind. The
 compiler's output (for nvcc, ptxas registers and spills) is kept beside the
 library as <library>.log.
 
-`build_cpu_library` compiles csrc/dsge_cpu.cpp, the same per-particle bodies
-as plain host loops, with g++. Only the tests use it.
+`build_cpu_library` compiles csrc/dsge_cpu.cpp (the per-particle bodies as
+plain host loops) and `build_eigh_cpu_library` csrc/eigh_cpu.cpp (the
+Jacobi body, block by block) with g++. Only the tests use them.
 
 A missing compiler or a failed build raises RuntimeError with the
 compiler's output; nothing here returns None.
@@ -22,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -79,16 +83,42 @@ def _compile(compiler, flags, source: Path, stem: str) -> Path:
     return out
 
 
-def build_cuda_library() -> Path:
-    """Path of the sm_90a kernel library, built if missing."""
-    return _compile(find_nvcc(), NVCC_FLAGS, CSRC / "dsge_kernels.cu",
-                    "libsmc_dsge_cuda")
+# CUDA sources and the stems of their libraries
+CUDA_SOURCES = {"dsge": ("dsge_kernels.cu", "libsmc_dsge_cuda"),
+                "eigh": ("eigh_kernel.cu", "libsmc_eigh_cuda")}
 
 
-def build_cpu_library() -> Path:
-    """Path of the host build of the kernel bodies (tests only)."""
+def build_cuda_library(name: str = "dsge") -> Path:
+    """Path of one sm_90a kernel library ("dsge" or "eigh"), built if
+    missing."""
+    source, stem = CUDA_SOURCES[name]
+    return _compile(find_nvcc(), NVCC_FLAGS, CSRC / source, stem)
+
+
+def build_cuda_libraries() -> dict:
+    """Every kernel library, one nvcc per source, all started together:
+    {name: path}."""
+    with ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
+        futures = {n: pool.submit(build_cuda_library, n)
+                   for n in CUDA_SOURCES}
+        return {n: f.result() for n, f in futures.items()}
+
+
+def _gxx() -> str:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the host build of the kernel "
                            "bodies cannot be made")
-    return _compile(gxx, GXX_FLAGS, CSRC / "dsge_cpu.cpp", "libsmc_dsge_cpu")
+    return gxx
+
+
+def build_cpu_library() -> Path:
+    """Path of the host build of the DSGE kernel bodies (tests only)."""
+    return _compile(_gxx(), GXX_FLAGS, CSRC / "dsge_cpu.cpp",
+                    "libsmc_dsge_cpu")
+
+
+def build_eigh_cpu_library() -> Path:
+    """Path of the host build of the Jacobi eigh body (tests only)."""
+    return _compile(_gxx(), GXX_FLAGS, CSRC / "eigh_cpu.cpp",
+                    "libsmc_eigh_cpu")

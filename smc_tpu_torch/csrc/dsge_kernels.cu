@@ -73,15 +73,6 @@ kalman_kernel(const double* __restrict__ T, const double* __restrict__ R,
       smem + w * smc::KalmanTile<NS, KG>::kWarpDoubles);
 }
 
-// Dynamic shared memory above the default 48 KB must be allowed per kernel.
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 template <int NS, int NK>
 int launch_re(const double* A, const double* B, const double* C,
               const double* D, double* X, double* M, unsigned char* ok,
@@ -89,8 +80,6 @@ int launch_re(const double* A, const double* B, const double* C,
   const long long warps = n_warps<NS, RG>(n);
   const size_t smem =
       sizeof(double) * kWarps * smc::ReTile<NS, RG>::kWarpDoubles;
-  cudaError_t e = allow_smem(re_kernel<NS, NK>, smem);
-  if (e != cudaSuccess) return (int)e;
   re_kernel<NS, NK><<<n_blocks(warps), kThreads, smem, s>>>(
       A, B, C, D, X, M, ok, n, warps, n_iter, tol);
   return (int)cudaGetLastError();
@@ -109,8 +98,6 @@ int launch_kalman(const double* T, const double* R, const double* Q,
                   long long n, int lyap_iter, double* out, cudaStream_t s) {
   const long long warps = n_warps<NS, KG>(n);
   const size_t smem = kalman_smem<NS>(n_t);
-  cudaError_t e = allow_smem(kalman_kernel<NS, NK>, smem);
-  if (e != cudaSuccess) return (int)e;
   kalman_kernel<NS, NK><<<n_blocks(warps), kThreads, smem, s>>>(
       T, R, Q, Z, d, H, data, n_t, ok, n, warps, lyap_iter, out);
   return (int)cudaGetLastError();
@@ -119,6 +106,26 @@ int launch_kalman(const double* T, const double* R, const double* Q,
 }  // namespace
 
 #define SMC_SIZES(X) X(6, 3) X(3, 3)
+
+// Allow every kernel dynamic shared memory up to `bytes` on the current
+// device (above the default 48 KB it must be allowed per kernel). Called
+// once per device before the first launch, so no launch, and no launch
+// inside a CUDA graph capture, sets an attribute. Returns the first error.
+extern "C" int smc_dsge_prepare(int bytes) {
+  cudaError_t e = cudaSuccess, f;
+#define SMC_CASE(NS, NK)                                                   \
+  f = cudaFuncSetAttribute(re_kernel<NS, NK>,                              \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,    \
+                           bytes);                                         \
+  if (e == cudaSuccess) e = f;                                             \
+  f = cudaFuncSetAttribute(kalman_kernel<NS, NK>,                          \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,    \
+                           bytes);                                         \
+  if (e == cudaSuccess) e = f;
+  SMC_SIZES(SMC_CASE)
+#undef SMC_CASE
+  return (int)e;
+}
 
 extern "C" int smc_re_solve(int n_s, int n_k, const double* A, const double* B,
                             const double* C, const double* D, double* X,

@@ -1,6 +1,7 @@
 """Observability (port of smc_tpu/diagnostics.py): verbosity-gated stage
-printing, the per-stage parameter table of verbose="high", degenerate-weight
-forensics and the stage timer. The lines are the JAX package's, character
+printing (per stage, or per fused chunk from its traces), the per-stage
+parameter table of verbose="high", degenerate-weight forensics and the
+stage timer. The lines are the JAX package's, character
 for character."""
 
 from __future__ import annotations
@@ -61,6 +62,34 @@ def end_stage_print(cloud, para_names, verbose="low", use_fixed_schedule=True,
     print(line, flush=True)
     if VERBOSITY.get(verbose, 1) >= 2:
         _param_table(cloud, para_names)
+
+
+def chunk_stage_prints(traces, n_in_chunk: int, first_stage: int,
+                       total_stages: Optional[int], chunk_time: float,
+                       resamples_before: int, verbose: str = "low") -> None:
+    """The lines of end_stage_print for a fused chunk's stages, from its
+    traces (phi, c, accept, ESS, resampled: sequences of at least
+    n_in_chunk). The stage time is the chunk's average: the stages of a
+    chunk are not timed one by one."""
+    if VERBOSITY.get(verbose, 1) < 1:
+        return
+    per = chunk_time / max(n_in_chunk, 1)
+    res_count = resamples_before
+    for k in range(n_in_chunk):
+        stage = first_stage + k
+        res_count += int(traces["resampled"][k])
+        line = (f"stage {stage}"
+                + (f"/{total_stages}" if total_stages else "")
+                + f": phi={float(traces['phi'][k]):.6f}"
+                + f" c={float(traces['c'][k]):.4f}"
+                + f" accept={float(traces['accept'][k]):.3f}"
+                + f" ESS={float(traces['ess'][k]):.1f}"
+                + f" resamples={res_count}"
+                + f" t~{per:.2f}s")
+        if total_stages:
+            eta = per * max(total_stages - stage, 0)
+            line += f" ETA={eta:.0f}s"
+        print(line, flush=True)
 
 
 def _param_table(cloud, para_names) -> None:

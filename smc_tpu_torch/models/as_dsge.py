@@ -130,8 +130,9 @@ def _shock_cov(thetas: torch.Tensor):
 
 def an_schorfheide(likelihood_backend: str = "kernel",
                    mesh=None) -> LinearDSGE:
-    """AS with the CUDA kernels ("kernel") or the plain path ("plain");
-    `mesh` as LinearDSGE takes it (the kernels run per rank either way)."""
+    """AS with the CUDA kernels ("kernel", or the JAX package's "pallas")
+    or the plain path ("plain", or "xla"); `mesh` as LinearDSGE takes it
+    (the kernels run per rank either way)."""
     return LinearDSGE(an_schorfheide_parameters(), _system, _measurement,
                       _N_SHOCK, _shock_cov,
                       likelihood_backend=likelihood_backend, mesh=mesh)

@@ -21,13 +21,18 @@ from __future__ import annotations
 
 from typing import Callable, List
 
-import numpy as np
 import torch
 
 from smc_tpu_torch.ops.linalg import (bl_matmul, bl_transpose, bl_gj_solve,
                                       bl_psd_fast_solve, bl_psd_logdet_solve)
+from smc_tpu_torch.utils.misc import DeviceCopies
 
 _LOG_2PI = 1.8378770664093453
+
+# likelihood_backend names: the port's, and the JAX package's for the same
+# two paths
+BACKENDS = {"kernel": "kernel", "plain": "plain", "pallas": "kernel",
+            "xla": "plain"}
 
 
 def _bl_matvec(A, x):
@@ -234,7 +239,9 @@ class LinearDSGE:
     CPU tensors. It raises ValueError, on every device, for shapes the
     kernels lack (n_obs != 3, or (n_state, n_shock) not in cuda_dsge.SIZES)
     and for the Riccati filter. "plain" always runs the bl_* functions
-    above, Chandrasekhar or (use_chand_recursion=False) Riccati.
+    above, Chandrasekhar or (use_chand_recursion=False) Riccati. The JAX
+    package's names are taken too: "pallas" is "kernel" and "xla" is
+    "plain".
 
     Estimate a DSGE model with smc(model.loglike_batched, ...,
     batched=True). `loglike` evaluates one theta; it is not written for
@@ -251,8 +258,10 @@ class LinearDSGE:
                  measurement_fn: Callable, n_shocks: int,
                  shock_cov_fn: Callable, use_chand_recursion: bool = True,
                  likelihood_backend: str = "kernel", mesh=None):
-        if likelihood_backend not in ("kernel", "plain"):
-            raise ValueError("likelihood_backend must be 'kernel' or 'plain'")
+        if likelihood_backend not in BACKENDS:
+            raise ValueError("likelihood_backend must be one of "
+                             f"{tuple(BACKENDS)}")
+        likelihood_backend = BACKENDS[likelihood_backend]
         if likelihood_backend == "kernel" and not use_chand_recursion:
             raise ValueError("the kernels run the Chandrasekhar recursion; "
                              "the Riccati filter needs "
@@ -265,18 +274,7 @@ class LinearDSGE:
         self.use_chand_recursion = use_chand_recursion
         self.likelihood_backend = likelihood_backend
         self.mesh = mesh
-        self._data = (None, None)
-
-    def _data_on(self, data, device) -> torch.Tensor:
-        """The observations [n_o, T] as a contiguous f64 tensor on `device`;
-        the copy of the last array seen is kept, so a run copies its data
-        to the device once, not once per likelihood call."""
-        src, t = self._data
-        if src is not data or t.device != device:
-            t = torch.as_tensor(np.asarray(data, np.float64),
-                                device=device).contiguous()
-            self._data = (data, t)
-        return t
+        self._data = DeviceCopies()     # the observations [n_o, T]
 
     def loglike_batched(self, thetas: torch.Tensor, data) -> torch.Tensor:
         """Whole-cloud likelihood thetas [N, P] -> loglh [N]."""
@@ -284,7 +282,7 @@ class LinearDSGE:
         A, B, C, D = self.system_fn(thetas)
         Q = self.shock_cov_fn(thetas)
         d_obs, Z, H = self.measurement_fn(thetas)
-        y = self._data_on(data, thetas.device)
+        y = self._data.get(data, thetas.device)
         if self.likelihood_backend == "plain":
             return bl_dsge_loglike(A, B, C, D, Q, Z, d_obs, H, y,
                                    self.use_chand_recursion)

@@ -28,6 +28,7 @@ import torch
 
 from smc_tpu_torch.distributions import Normal, Uniform
 from smc_tpu_torch.params import Parameter, parameter, Untransformed, SquareRoot
+from smc_tpu_torch.utils.misc import DeviceCopies
 
 _LOG_2PI = 1.8378770664093453
 _N_EQ = 3
@@ -88,26 +89,18 @@ def generate_linear_data(seed: int = 1793, T: int = 100
 
 
 class _OnDevice:
-    """A fixed array, and each data object the likelihood is called with,
-    held on each device they are asked for, so a run copies them to the card
-    once rather than at every likelihood call (a tempered update alternates
-    between the new and the old data)."""
+    """A fixed array, and each data object the likelihood is called with
+    (utils.misc.DeviceCopies), held on each device they are asked for."""
 
     def __init__(self, fixed: np.ndarray):
         self.fixed = np.asarray(fixed, np.float64)
         self._fixed = {}
-        # id(data) -> (data, {device: tensor}); holding `data` keeps its id
-        # from being reused by another object
-        self._data = {}
+        self._data = DeviceCopies()
 
     def get(self, data, device):
         if device not in self._fixed:
             self._fixed[device] = torch.as_tensor(self.fixed, device=device)
-        _, copies = self._data.setdefault(id(data), (data, {}))
-        if device not in copies:
-            copies[device] = torch.as_tensor(data, dtype=torch.float64,
-                                             device=device)
-        return copies[device], self._fixed[device]
+        return self._data.get(data, device), self._fixed[device]
 
 
 def make_linear_loglike(X: np.ndarray):

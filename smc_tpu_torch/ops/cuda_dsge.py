@@ -8,7 +8,9 @@ where `pallas_kalman_chandrasekhar` (kernel `_kalman_kernel`) stood, and
 Dispatch: a CPU tensor runs the plain PyTorch version (models/dsge.py
 `bl_*`); a CUDA tensor launches the kernel, or raises. Shapes without a
 kernel raise ValueError on every device. There is no fallback.
-`LAUNCHES` counts kernel launches, one per call that reaches the GPU.
+`LAUNCHES` counts kernel launches, one per call that reaches the GPU. A
+call inside a CUDA graph capture launches nothing; smc()'s fused recursion
+adds the captured launches to `LAUNCHES` once per replay.
 
 The kernels (csrc/dsge_kernels.cu, bodies in csrc/dsge_particle.cuh) run
 in native f64 with a group of G lanes per particle: G = 8 for the RE solve,
@@ -58,13 +60,17 @@ N_OBS = 3
 _MAX_SMEM = 227 * 1024
 
 _lib = None
+_prepared = set()
 
 
-def _library():
+def _library(device: torch.device):
+    """The kernel library, loaded once; every kernel's shared-memory limit
+    raised to _MAX_SMEM once per device, before its first launch (so no
+    launch, and none inside a CUDA graph capture, sets an attribute)."""
     global _lib
     if _lib is None:
         from smc_tpu_torch import _build
-        lib = ctypes.CDLL(str(_build.build_cuda_library()))
+        lib = ctypes.CDLL(str(_build.build_cuda_library("dsge")))
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.smc_re_solve.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
                                      ctypes.c_double, P]
@@ -74,7 +80,15 @@ def _library():
         lib.smc_kalman.restype = I
         lib.smc_kalman_smem_bytes.argtypes = [I, I]
         lib.smc_kalman_smem_bytes.restype = L
+        lib.smc_dsge_prepare.argtypes = [I]
+        lib.smc_dsge_prepare.restype = I
         _lib = lib
+    if device.index not in _prepared:
+        with torch.cuda.device(device):
+            rc = _lib.smc_dsge_prepare(_MAX_SMEM)
+        if rc != 0:
+            raise RuntimeError(f"DSGE kernel set-up failed (CUDA error {rc})")
+        _prepared.add(device.index)
     return _lib
 
 
@@ -132,7 +146,7 @@ def solve_linear_re(A, B, C, D, n_iter: int = 16, tol: float = 1e-8):
     ok = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return X, M, ok
-    lib = _library()
+    lib = _library(dev)
     with torch.cuda.device(dev):
         rc = lib.smc_re_solve(
             n_s, n_k, A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
@@ -169,7 +183,7 @@ def kalman_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H, data, ok=None,
     out = torch.empty(n, dtype=torch.float64, device=dev)
     if n == 0:
         return out
-    lib = _library()
+    lib = _library(dev)
     if lib.smc_kalman_smem_bytes(n_s, n_t) > _MAX_SMEM:
         raise ValueError(f"T={n_t} observations and the group tiles do not "
                          "fit the kernel's shared memory")

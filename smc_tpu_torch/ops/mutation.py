@@ -15,9 +15,12 @@ and is accepted with probability
 
 The whole cloud mutates at once: the block's covariance factor (an eigh
 pseudo-inverse that tolerates rank deficiency) is computed once per block,
-everything else is batched over [N, ...]. Block columns are read and written
-with index_select/index_copy. Draws per block, in order: normal eps [N, k],
-the mixture component (categorical, when alpha < 1), the uniform [N].
+everything else is batched over [N, ...]. The eigh is ops/cuda_eigh.py's: the
+Jacobi kernel on a card, torch.linalg.eigh on the CPU, so nothing in a
+mutation copies from the host or reads back to it and a stage can be
+captured in a CUDA graph. Block columns are read and written with
+index_select/index_copy. Draws per block, in order: normal eps [N, k], the
+mixture component (categorical, when alpha < 1), the uniform [N].
 
 In a tempered update (bridging) the proposals' likelihood on the old data
 comes from `old_loglike_batched`; without it, it is 0.
@@ -39,6 +42,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from smc_tpu_torch.ops.cuda_eigh import eigh
 from smc_tpu_torch.utils.misc import scrub_loglh
 
 _LOG_2PI = 1.8378770664093453
@@ -61,7 +65,7 @@ def block_sizes(n_free: int, n_blocks: int) -> List[int]:
 def _deg_factor(cov: torch.Tensor, tol: float = 1e-12):
     """Eigen factor of a PSD, possibly rank-deficient matrix:
     (U, sqrt_lam, inv_lam, rank, logdet_plus)."""
-    lam, U = torch.linalg.eigh(cov)
+    lam, U = eigh(cov)
     lam_max = torch.clamp(torch.max(lam), min=0.0)
     keep = lam > tol * torch.clamp(lam_max, min=1e-300)
     safe = torch.where(keep, lam, 1.0)
@@ -100,7 +104,7 @@ def make_mutation_step(space, loglike_batched: Callable, n_blocks: int,
     offsets = np.concatenate([[0], np.cumsum(sizes)])[:-1]
     log_alpha = math.log(alpha) if alpha > 0 else -math.inf
     log_half_rest = math.log((1.0 - alpha) / 2.0) if alpha < 1 else -math.inf
-    mix_probs = [alpha, (1 - alpha) / 2, (1 - alpha) / 2]
+    mix_probs = (alpha, (1 - alpha) / 2, (1 - alpha) / 2)
 
     def mutation_step(draws, params, loglh, logprior, old_loglh,
                       mean_free, cov_free, perm, c, phi_n, phi_n1):

@@ -44,6 +44,7 @@ class TorchDraws:
         self.device = torch.device(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(seed))
+        self._cdfs = {}
 
     def uniform(self, shape) -> torch.Tensor:
         """U[0, 1) f64 of `shape`."""
@@ -62,11 +63,25 @@ class TorchDraws:
 
     def categorical(self, probs, n: int) -> torch.Tensor:
         """n iid indices into `probs` (need not be normalized), int64 [n],
-        by inverse CDF: first index whose cumulative probability exceeds u."""
-        p = torch.as_tensor(probs, dtype=_F64, device=self.device)
-        cdf = torch.cumsum(p / p.sum(), 0)
+        by inverse CDF: first index whose cumulative probability exceeds u.
+        The CDF of host probabilities (a list or tuple) is made on the device
+        once per distinct tuple, so a call copies nothing from the host (as
+        a CUDA graph capture requires)."""
+        if torch.is_tensor(probs):
+            cdf = self._cdf(probs)
+        else:
+            key = tuple(float(x) for x in probs)
+            if key not in self._cdfs:
+                self._cdfs[key] = self._cdf(torch.tensor(
+                    key, dtype=_F64, device=self.device))
+            cdf = self._cdfs[key]
         u = self.uniform((n,))
-        return torch.searchsorted(cdf, u, right=True).clamp_(0, p.numel() - 1)
+        return torch.searchsorted(cdf, u, right=True).clamp_(0,
+                                                             cdf.numel() - 1)
+
+    def _cdf(self, p) -> torch.Tensor:
+        p = torch.as_tensor(p, dtype=_F64, device=self.device)
+        return torch.cumsum(p / p.sum(), 0)
 
     def permutation(self, n: int) -> torch.Tensor:
         """A uniformly random permutation of 0..n-1, int64 [n]."""

@@ -1,24 +1,30 @@
 """The SMC recursion: correction -> selection -> mutation over a tempering
-schedule (port of smc_tpu/smc.py: the stage body and the host stage loop,
-with the fixed or the adaptive schedule, tempered updates and bridge
-distributions, checkpoints and resume).
+schedule (port of smc_tpu/smc.py: the stage body, the fused recursion and
+the host stage loop, with the fixed or the adaptive schedule, tempered
+updates and bridge distributions, checkpoints and resume).
 
-The stage loop runs on the host. Each stage makes one explicit host read:
-the ESS and the log-MDD increment, fetched together right after the
-correction, which the host `if` on ESS < threshold needs. In adaptive mode
-the stage's phi_n, j and phi_prop come from `solve_adaptive_phi` as device
-scalars and are fetched in that same read. Everything else stays on the
-device: the step size c is updated there from the previous stage's mean
-acceptance, and the weight columns are fetched once, at the end. Reads that
-are made only on some stages: a Metropolis resample reads its chain length;
-verbose "low"/"high" read c and the acceptance for the stage line ("high"
-also the parameter table); a checkpoint reads c, the acceptance and the w/W
-columns. On a GPU, `torch.linalg.eigh` in the mutation also waits for the
-device, to check its status.
+One stage function serves both loops (`make_recursion_step`): it maps the
+carried state, a dict of device tensors, to the next one. The resample
+decision is a device select (the JAX package's `lax.cond`), the adaptive
+schedule's solver runs on the device, the step size c is updated there, and
+the proposal's eigendecomposition is ops/cuda_eigh.py's, so a stage makes no
+host read and copies nothing from the host (a Metropolis resample excepted:
+its chain length is read).
 
-Under a particle mesh (`mesh=`, parallel/mesh.py) each stage adds two
-collectives: the all-gather of the cloud's rows before the correction and
-the all-gather of the acceptance after the mutation.
+* The fused recursion (`FusedRecursion`, `fused=True`, the default where
+  it applies) keeps the state in static device buffers and the per-stage
+  traces in [chunk] buffers. On a card the first stage runs eagerly (the
+  warm-up before a capture), the next is captured as one CUDA graph and each
+  further stage is a replay; on the CPU the same body is called eagerly.
+  The host reads once per chunk of stages and once at the end.
+* The host loop (`fused=False`) calls the same stage function and reads its
+  scalars once per stage (phi, ESS, the log-MDD increment, the resample
+  flag, c, the acceptance, j and phi_prop, in one read), as the JAX
+  package's host loop does.
+
+Under a particle mesh (`mesh=`, parallel/mesh.py, host loop only) each stage
+adds two collectives: the all-gather of the cloud's rows before the
+correction and the all-gather of the acceptance after the mutation.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import contextlib
 import dataclasses
 import math
 import os
+import time
 import warnings
 from typing import Callable, List, Optional
 
@@ -38,25 +45,44 @@ from smc_tpu_torch import io as smc_io
 from smc_tpu_torch.cloud import (Cloud, ARRAY_FIELDS, weighted_mean,
                                  weighted_cov, weighted_std)
 from smc_tpu_torch.params import ParamSpace
-from smc_tpu_torch.rng import TorchDraws, ParticleDraws
+from smc_tpu_torch.rng import TorchDraws, ParticleDraws, ReplayDraws
+from smc_tpu_torch.ops import cuda_dsge, cuda_eigh
 from smc_tpu_torch.ops.correction import correct
 from smc_tpu_torch.ops.schedule import fixed_schedule, solve_adaptive_phi
 from smc_tpu_torch.ops.resample import (resample as resample_indices,
                                         metropolis_chain_length,
                                         VALID_METHODS)
-from smc_tpu_torch.ops.mutation import make_mutation_step
+from smc_tpu_torch.ops.mutation import block_sizes, make_mutation_step
 from smc_tpu_torch.ops.initialization import (initial_draw,
                                               initialize_likelihoods)
+
+_F64 = torch.float64
+
+# replays a fused adaptive run keeps in flight past the last stage the host
+# has seen unfinished: at most this many masked stages run per run
+LOOKAHEAD = 4
+
+# the carried state of the recursion (make_recursion_step), and the
+# per-stage scalars a fused chunk traces, in the order of its [chunk, 6]
+# trace buffer
+STATE_KEYS = ("params", "loglh", "logprior", "old_loglh", "weights", "accept",
+              "c", "accept_rate", "phi", "ess_prev", "j", "phi_prop",
+              "resampled_last", "s", "log_mdd", "resamples", "nan_ess")
+TRACE_KEYS = ("phi", "ess", "c", "accept", "mdd_inc", "resampled")
 
 
 @dataclasses.dataclass
 class SMCResult:
     """Estimation output: the final cloud, the incremental (w) and
     normalized (W) weight matrices [N, n_stages+1] as numpy, the log marginal
-    data density, the redraw rounds of the initialization, the explicit
-    host reads the stage loop made, the Doeblin length (before the cap) of
-    each Metropolis resample, and under a particle mesh the collectives the
-    run made and the bytes they brought this rank from the others."""
+    data density, the redraw rounds of the initialization, which stage loop
+    ran (`fused`), the blocking reads of stage scalars the stage loop made (one
+    per stage in the host loop; one per chunk and one at the end when
+    fused), the masked stages a fused adaptive run replayed past its end,
+    the seconds a fused run spent capturing its CUDA graph, the Doeblin
+    length (before the cap) of each Metropolis resample, and under a
+    particle mesh the collectives the run made and the bytes they brought
+    this rank from the others."""
 
     cloud: Cloud
     w: Optional[np.ndarray]
@@ -65,7 +91,10 @@ class SMCResult:
     para_names: List[str]
     space: ParamSpace
     init_rounds: int = 0
+    fused: bool = False
     host_reads: int = 0
+    masked_stages: int = 0
+    capture_seconds: float = 0.0
     chain_lengths: List[int] = dataclasses.field(default_factory=list)
     collectives: int = 0
     collective_bytes: int = 0
@@ -101,17 +130,20 @@ def make_stage_core(space, loglike_batched, n_blocks, n_mh_steps, alpha,
                     old_loglike_batched=None, sharding=None):
     """The stage body:
       stage(draws, params, loglh, logprior, old_loglh, weights,
-            phi_n, phi_n1, c, read_along=())
+            phi_n, phi_n1, c)
         -> (params, loglh, logprior, old_loglh, weights, accept,
             inc_w, W_col, ess, did_resample, accept_mean, mdd_inc, info)
-    ess and mdd_inc are host floats (the stage's one host read) and
-    did_resample a bool; `read_along` are f64 device scalars fetched in the
-    same read, returned as the host list info["read"]. A Metropolis
-    resample puts its Doeblin chain length (before the cap) in
-    info["chain_length"]. Everything else stays on the device. A stage
-    whose ESS is NaN returns after the correction (smc() raises).
-    Draws, in order: the resampling draws only when the stage resamples,
-    the block permutation, then the mutation's draws.
+    ess, did_resample, accept_mean and mdd_inc are device scalars. The
+    resample decision ESS < threshold is a device select, as the JAX
+    package's `lax.cond`: the resampling indices are computed on every
+    stage and the gather takes them where the stage resamples, the identity
+    elsewhere. A stage whose ESS is NaN runs through on NaN weights (the
+    caller raises at its next read).
+    Draws, in order: the resampling draws (on every stage), the block
+    permutation, then the mutation's draws. A Metropolis resample is the
+    exception: the stage reads the decision to the host and draws its chain
+    (of the length it reads, put in info["chain_length"]) only when it
+    resamples; info["host_reads"] counts those reads.
 
     Under a particle mesh (`sharding`) the stage takes the whole cloud (the
     rows every rank gathered) and returns this rank's rows of the particle
@@ -122,35 +154,34 @@ def make_stage_core(space, loglike_batched, n_blocks, n_mh_steps, alpha,
     omega = tempered_update_prior_weight
 
     def stage(draws, params, loglh, logprior, old_loglh, weights,
-              phi_n, phi_n1, c, read_along=()):
+              phi_n, phi_n1, c):
         inc_w, norm_w, ess, mdd_inc = correct(loglh, old_loglh, weights,
                                               phi_n, phi_n1, omega,
                                               log_prob_old_data)
-        ess, mdd_inc, *read = torch.stack([ess, mdd_inc,
-                                           *read_along]).tolist()
-        info = {"read": read}
         n = loglh.shape[0]
+        dev = params.device
         rows = slice(None) if sharding is None else sharding.rows(n)
-        if math.isnan(ess):
-            nan = torch.full((), float("nan"), dtype=torch.float64,
-                             device=params.device)
-            return (params[rows], loglh[rows], logprior[rows],
-                    old_loglh[rows], norm_w[rows],
-                    torch.zeros_like(loglh[rows]), inc_w, norm_w, ess, False,
-                    nan, mdd_inc, info)
-        did_resample = ess < threshold
-        if did_resample:
-            n_iter = None
-            if resampling_method == "metropolis":
+        do_resample = ess < threshold
+        info = {"host_reads": 0}
+        if resampling_method == "metropolis":
+            info["host_reads"] = 1
+            if bool(do_resample):
                 n_iter, info["chain_length"] = metropolis_chain_length(norm_w)
-            idx = resample_indices(draws, norm_w, method=resampling_method,
-                                   n_iter=n_iter)
-            params, loglh = params[idx], loglh[idx]
-            logprior, old_loglh = logprior[idx], old_loglh[idx]
-            weights = torch.ones_like(norm_w)
+                info["host_reads"] += 1
+                idx = resample_indices(draws, norm_w, method="metropolis",
+                                       n_iter=n_iter)
+            else:
+                idx = torch.arange(n, device=dev)
         else:
-            weights = norm_w
-        vals = params.index_select(1, space.tensors(params.device)["free_inds"])
+            idx = torch.where(do_resample,
+                              resample_indices(draws, norm_w,
+                                               method=resampling_method),
+                              torch.arange(n, device=dev))
+        params, loglh = params.index_select(0, idx), loglh.index_select(0, idx)
+        logprior = logprior.index_select(0, idx)
+        old_loglh = old_loglh.index_select(0, idx)
+        weights = torch.where(do_resample, 1.0, norm_w)
+        vals = params.index_select(1, space.tensors(dev)["free_inds"])
         mu = weighted_mean(vals, weights)
         cov = weighted_cov(vals, weights)
         cov = 0.5 * (cov + cov.T)
@@ -161,10 +192,220 @@ def make_stage_core(space, loglike_batched, n_blocks, n_mh_steps, alpha,
             old_loglh[rows], mu, cov, perm, c, phi_n, phi_n1)
         accept_all = accept if sharding is None else sharding.gather(accept)
         return (params, loglh, logprior, old_loglh, weights[rows], accept,
-                inc_w, weights, ess, did_resample, torch.mean(accept_all),
+                inc_w, weights, ess, do_resample, torch.mean(accept_all),
                 mdd_inc, info)
 
     return stage
+
+
+def make_recursion_step(stage, sched_dev, n_parts, use_fixed_schedule,
+                        tempering_target, target, sharding=None):
+    """One stage of the recursion on the carried state:
+      step(draws, st) -> (st', extras)
+    st holds STATE_KEYS as device tensors (the particle arrays are this
+    rank's rows under a mesh); extras holds the stage's inc_w, W_col,
+    mdd_inc and the stage's `info`. phi_n is the fixed schedule's entry s or
+    the adaptive solver's root, c is updated from the last acceptance, and
+    the stage body runs; everything stays on the device."""
+    n_phi = sched_dev.shape[0]
+    last = torch.tensor(n_phi - 1, device=sched_dev.device)
+
+    def step(draws, st):
+        arrays = (st["params"], st["loglh"], st["logprior"], st["old_loglh"],
+                  st["weights"])
+        if sharding is not None:
+            arrays = sharding.gather(*arrays)
+        phi_n1 = st["phi"]
+        if use_fixed_schedule:
+            entry = torch.minimum(st["s"], last).reshape(1)
+            phi_n = sched_dev.index_select(0, entry)[0]
+            j, phi_prop = st["j"], st["phi_prop"]
+        else:
+            ess_bar = tempering_target * torch.where(
+                st["resampled_last"], float(n_parts), st["ess_prev"])
+            phi_n, j, phi_prop = solve_adaptive_phi(
+                arrays[1], arrays[4], arrays[3], phi_n1, sched_dev, st["j"],
+                st["phi_prop"], ess_bar)
+        c = _logistic_c_update(st["c"], st["accept_rate"], target)
+        (params, loglh, logprior, old_loglh, weights, accept, inc_w, W_col,
+         ess, did, accept_mean, mdd_inc, info) = stage(
+            draws, *arrays, phi_n, phi_n1, c)
+        new = dict(params=params, loglh=loglh, logprior=logprior,
+                   old_loglh=old_loglh, weights=weights, accept=accept, c=c,
+                   accept_rate=accept_mean, phi=phi_n, ess_prev=ess, j=j,
+                   phi_prop=phi_prop, resampled_last=did, s=st["s"] + 1,
+                   log_mdd=st["log_mdd"] + mdd_inc,
+                   resamples=st["resamples"] + did.to(torch.int64),
+                   nan_ess=torch.isnan(ess))
+        return new, dict(inc_w=inc_w, W_col=W_col, mdd_inc=mdd_inc,
+                         info=info)
+
+    return step
+
+
+def _initial_state(cloud, device, c, phi, j, phi_prop, resampled_last,
+                   stage, log_mdd=0.0):
+    """The carried state at the start of the recursion, on `device`."""
+    f64 = lambda x: torch.tensor(float(x), dtype=_F64, device=device)
+    i64 = lambda x: torch.tensor(int(x), dtype=torch.int64, device=device)
+    b = lambda x: torch.tensor(bool(x), device=device)
+    return dict(params=cloud.params, loglh=cloud.loglh,
+                logprior=cloud.logprior, old_loglh=cloud.old_loglh,
+                weights=cloud.weights, accept=cloud.accept, c=f64(c),
+                accept_rate=f64(cloud.accept_rate), phi=f64(phi),
+                ess_prev=f64(cloud.ESS[-1]), j=i64(j), phi_prop=f64(phi_prop),
+                resampled_last=b(resampled_last), s=i64(stage),
+                log_mdd=f64(log_mdd), resamples=i64(0), nan_ess=b(False))
+
+
+# the kernels' launch counters
+_COUNTERS = (cuda_dsge.LAUNCHES, cuda_eigh.LAUNCHES)
+
+
+def _add_launches(counts, times=1):
+    """Add `times` x counts (one dict per entry of _COUNTERS)."""
+    for d, c in zip(_COUNTERS, counts):
+        for k, v in c.items():
+            d[k] += times * v
+
+
+class FusedRecursion:
+    """The recursion on static device buffers, the counterpart of the JAX
+    package's `make_fused_recursion` (its `lax.while_loop` over stages).
+
+    `buffers` hold STATE_KEYS plus the chunk's slot index `k` and the
+    `done` flag (phi has reached 1 or an ESS was NaN); `scalars` [chunk, 6]
+    and, with `store_weight_matrices`, `w` and `W` [chunk, N] hold the
+    traces. `run_stage()` runs one stage: the body masks it, so a stage
+    after `done` leaves every buffer bit for bit as it was, and a stage
+    writes its traces at slot k and advances k. On a card the first call
+    runs the body eagerly, the second captures it as a CUDA graph (the
+    run's generator registered with it, so each replay advances the
+    generator as an eager stage does) and then replays it; every later call
+    replays. The kernels' launch counters count the graph's launches once
+    per replay and nothing for the capture. On the CPU every call runs the
+    body eagerly."""
+
+    def __init__(self, step, draws, state, chunk: int, n_parts: int,
+                 store_weight_matrices: bool):
+        dev = state["params"].device
+        self.step, self.draws, self.device = step, draws, dev
+        self.buffers = {k: v.clone() for k, v in state.items()}
+        self.buffers["k"] = torch.zeros((), dtype=torch.int64, device=dev)
+        self.buffers["done"] = ~((state["phi"] < 1.0) & ~state["nan_ess"])
+        self.scalars = torch.zeros((chunk, len(TRACE_KEYS)), dtype=_F64,
+                                   device=dev)
+        self.w = self.W = None
+        if store_weight_matrices:
+            self.w = torch.zeros((chunk, n_parts), dtype=_F64, device=dev)
+            self.W = torch.zeros((chunk, n_parts), dtype=_F64, device=dev)
+        self.graph = None
+        self.calls = 0
+        self.capture_seconds = 0.0
+        self._per_replay = []
+
+    def body(self):
+        b = self.buffers
+        st = {k: b[k] for k in STATE_KEYS}
+        active = (st["phi"] < 1.0) & ~st["nan_ess"]
+        new, ex = self.step(self.draws, st)
+        for key in STATE_KEYS:
+            b[key].copy_(torch.where(active, new[key], b[key]))
+        slot = b["k"].reshape(1)
+        row = torch.stack([new["phi"], new["ess_prev"], new["c"],
+                           new["accept_rate"], ex["mdd_inc"],
+                           new["resampled_last"].to(_F64)])
+        self._write(self.scalars, slot, row, active)
+        if self.w is not None:
+            self._write(self.w, slot, ex["inc_w"], active)
+            self._write(self.W, slot, ex["W_col"], active)
+        b["k"].add_(active.to(torch.int64))
+        b["done"].copy_(~((b["phi"] < 1.0) & ~b["nan_ess"]))
+
+    @staticmethod
+    def _write(trace, slot, row, active):
+        old = trace.index_select(0, slot)[0]
+        trace.index_copy_(0, slot, torch.where(active, row, old)[None])
+
+    def run_stage(self):
+        self.calls += 1
+        if self.device.type != "cuda" or self.calls == 1:
+            self.body()
+            return
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        _add_launches(self._per_replay)
+
+    def _capture(self):
+        """Capture the body on the current stream (a capture that fails
+        raises; nothing reruns the stage eagerly)."""
+        t0 = time.perf_counter()
+        before = [dict(d) for d in _COUNTERS]
+        graph = torch.cuda.CUDAGraph()
+        gen = getattr(self.draws, "generator", None)
+        if gen is not None:
+            graph.register_generator_state(gen)
+        with torch.cuda.graph(graph,
+                              stream=torch.cuda.current_stream(self.device)):
+            self.body()
+        self._per_replay = [{k: v - b[k] for k, v in d.items()}
+                            for d, b in zip(_COUNTERS, before)]
+        _add_launches(self._per_replay, times=-1)
+        self.graph = graph
+        self.capture_seconds = time.perf_counter() - t0
+
+    def read_chunk(self):
+        """The chunk's traces and the state's flags in one blocking read:
+        (n_in_chunk, traces {TRACE_KEYS: list}, nan_ess, done)."""
+        b = self.buffers
+        flat = torch.cat([self.scalars.flatten(),
+                          torch.stack([b["k"].to(_F64),
+                                       b["nan_ess"].to(_F64),
+                                       b["done"].to(_F64)])]).tolist()
+        n_in, nan_ess, done = flat[-3:]
+        rows = np.asarray(flat[:-3]).reshape(self.scalars.shape)[:int(n_in)]
+        traces = {k: rows[:, i] for i, k in enumerate(TRACE_KEYS)}
+        return int(n_in), traces, bool(nan_ess), bool(done)
+
+
+class _DoneWatch:
+    """Which replays of an adaptive fused chunk the host has seen end
+    unfinished. After each stage a non-blocking copy of the `done` flag
+    goes to pinned host memory and an event is recorded; the host waits on
+    the oldest event only when `lookahead` stages are in flight, so the
+    card always has work queued and at most `lookahead` stages run past the
+    end. On the CPU the flag is known at once."""
+
+    def __init__(self, device, size: int, lookahead: int = LOOKAHEAD):
+        self.cuda = device.type == "cuda"
+        self.lookahead = lookahead
+        self.flags = (torch.zeros(size, dtype=torch.bool).pin_memory()
+                      if self.cuda else None)
+        self.events = []
+        self.seen = 0            # stages known to have ended unfinished
+        self.done = False
+
+    def after_stage(self, done_dev: torch.Tensor) -> bool:
+        """Record stage len(events); True once the host knows the run is
+        done (then issue no further stage)."""
+        if not self.cuda:
+            self.done = bool(done_dev)
+            return self.done
+        r = len(self.events)
+        self.flags[r].copy_(done_dev, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self.events.append(ev)
+        while not self.done and self.seen < len(self.events):
+            ev = self.events[self.seen]
+            if len(self.events) - self.seen > self.lookahead:
+                ev.synchronize()
+            elif not ev.query():
+                break
+            self.done = bool(self.flags[self.seen])
+            self.seen += 1
+        return self.done
 
 
 def _on_device(cloud: Cloud, device) -> Cloud:
@@ -174,6 +415,20 @@ def _on_device(cloud: Cloud, device) -> Cloud:
         cloud, tempering_schedule=list(cloud.tempering_schedule),
         ESS=list(cloud.ESS),
         **{f: getattr(cloud, f).to(device) for f in ARRAY_FIELDS})
+
+
+def _fuse_limit(resampling_method, mesh, draws, device) -> Optional[str]:
+    """Why the port cannot fuse this run, or None."""
+    if resampling_method == "metropolis":
+        return ("resampling_method='metropolis' (its chain length is read "
+                "to the host; ROADMAP.md Queue A item 5)")
+    if mesh is not None:
+        return ("a particle mesh (its collectives are not captured; "
+                "ROADMAP.md Queue A item 6)")
+    if isinstance(draws, ReplayDraws) and device.type == "cuda":
+        return ("ReplayDraws on a CUDA device (recorded host arrays cannot "
+                "be captured in a CUDA graph)")
+    return None
 
 
 def smc(loglikelihood: Callable,
@@ -230,16 +485,32 @@ def smc(loglikelihood: Callable,
     The kwargs are the JAX package's `smc()`'s, with these differences:
       * `device` defaults to "cuda": the run is on the card unless the
         caller passes device="cpu". Without a card the first tensor it
-        creates raises; nothing falls back to the CPU.
+        creates raises; nothing falls back to the CPU. On a card a
+        mutation block holds at most cuda_eigh.MAX_K (1,024) free
+        parameters, the eigh kernel's limit; a larger one raises
+        ValueError before anything is drawn.
       * `loglikelihood(theta, data)` maps a tensor f64[P] to a scalar and
         is vmapped with torch.func.vmap; pass `batched=True` if it maps
         f64[N, P] to f64[N] (a DSGE model's `loglike_batched`). It must be
         total: -inf or nan on failure, never an exception, and free of
-        Python branches on tensor values.
+        Python branches on tensor values and of host reads (a fused run
+        captures it in a CUDA graph).
       * Draws come from one torch.Generator seeded with `seed` on `device`,
         or from `key`, a draws object (TorchDraws) on `device`. Two runs
-        with the same seed on the same device are identical, and a resume
-        from a checkpoint continues the generator bit for bit.
+        with the same seed on the same device are identical, whichever
+        loop runs them, and a resume from a checkpoint continues the
+        generator bit for bit.
+      * `fused` picks the stage loop as the JAX package does: fused (the
+        recursion on device buffers, each stage a replay of one captured
+        CUDA graph on a card, one host read per chunk of stages) unless
+        run_test, save_intermediate or continue_intermediate is set or
+        verbose is "high"; fused=None chooses by that rule, fused=False
+        takes the host loop. The port also runs the host loop, and
+        fused=True raises ValueError, for resampling_method="metropolis"
+        (its chain length is read to the host), under a `mesh` and for a
+        ReplayDraws `key` on a CUDA device. A chunk is n_phi stages,
+        `fused_chunk_stages` when given, 25 at verbose "low" (the first 3).
+        Both loops give the same bits. `SMCResult.fused` says which ran.
       * `continue_intermediate` resumes with the checkpoint's own phi_prop
         and infers whether the checkpoint's stage resampled from its ESS,
         so an adaptive-schedule resume is bit-identical too.
@@ -248,8 +519,6 @@ def smc(loglikelihood: Callable,
         (`smc_trace.json`).
       * `aot_cache_dir` has no effect: eager PyTorch has no compiled
         program to cache (the CUDA kernels' build is cached by _build).
-      * `fused=True` (the whole recursion as one device program) raises
-        NotImplementedError; `fused_chunk_stages` is accepted and unused.
       * `mesh` is a particle mesh (parallel.particle_mesh()) over the
         ranks of a torch.distributed process group, one process per rank,
         each running this call with the same arguments and seed on its own
@@ -271,12 +540,7 @@ def smc(loglikelihood: Callable,
     `intermediate_stage_start`. `testing=True` suppresses the final writes;
     `run_csminwel` warns that no mode polish runs."""
     del parallel, data_vintage, old_vintage, smc_iteration, filestring_addl
-    del intermediate_stage_start, aot_cache_dir, fused_chunk_stages
-    if fused:
-        raise NotImplementedError(
-            "fused=True (the whole recursion as one device program; its "
-            "counterpart is a CUDA graph per stage) is not ported to "
-            "smc_tpu_torch yet (ROADMAP.md, Queue A item 10)")
+    del intermediate_stage_start, aot_cache_dir
     if resampling_method not in VALID_METHODS:
         raise ValueError(f"resampling_method must be one of {VALID_METHODS}")
     if verbose not in diag.VERBOSITY:
@@ -285,11 +549,22 @@ def smc(loglikelihood: Callable,
         raise ValueError(
             "The keyword tempered_update_prior_weight must be within [0, 1] "
             f"but is currently set to {tempered_update_prior_weight}")
+    device = torch.device(device)
+    draws = key if key is not None else TorchDraws(seed, device)
+    can_fuse = (not run_test and not save_intermediate
+                and not continue_intermediate and verbose in ("none", "low"))
+    limit = _fuse_limit(resampling_method, mesh, draws, device)
+    use_fused = (can_fuse and limit is None) if fused is None else bool(fused)
+    if use_fused and not can_fuse:
+        raise ValueError(
+            "fused=True is incompatible with run_test/save_intermediate/"
+            "continue_intermediate and requires verbose='none' or 'low'")
+    if use_fused and limit is not None:
+        raise ValueError(f"fused=True is not available with {limit}")
     if run_csminwel:
         warnings.warn("run_csminwel is accepted for API parity but mode "
                       "polish is not implemented (matching the reference)")
 
-    device = torch.device(device)
     sharding = None
     if mesh is not None:
         from smc_tpu_torch.parallel.mesh import particle_sharding
@@ -301,6 +576,8 @@ def smc(loglikelihood: Callable,
              else ParamSpace(parameters, regime_switching=regime_switching))
     if space.n_free == 0:
         raise ValueError("All model parameters are fixed!")
+    if device.type == "cuda":       # the eigh kernel's limit, before any draw
+        cuda_eigh.check_block(max(block_sizes(space.n_free, n_blocks)))
 
     def batch(fn, d):
         return (lambda th: fn(th, d)) if batched else \
@@ -313,7 +590,6 @@ def smc(loglikelihood: Callable,
         old_loglike_batched = batch(old_loglikelihood or loglikelihood,
                                     old_data)
 
-    draws = key if key is not None else TorchDraws(seed, device)
     threshold = threshold_ratio * n_parts
     sched = fixed_schedule(n_phi, lam)
     omega = tempered_update_prior_weight
@@ -413,13 +689,18 @@ def smc(loglikelihood: Callable,
     if use_fixed_schedule and not continue_intermediate:
         cloud.tempering_schedule = [float(sched[0])]
     if store_weight_matrices and not continue_intermediate:
-        w_cols = [torch.zeros(n_parts, dtype=torch.float64, device=device)]
+        w_cols = [torch.zeros(n_parts, dtype=_F64, device=device)]
         W_cols = [weights0 if tempered_update else
-                  torch.ones(n_parts, dtype=torch.float64, device=device)]
+                  torch.ones(n_parts, dtype=_F64, device=device)]
 
     stage = make_stage_core(space, loglike_batched, n_blocks, n_mh_steps,
                             alpha, resampling_method, threshold, omega,
                             log_prob_old_data, old_loglike_batched, sharding)
+    sched_dev = torch.as_tensor(sched, device=device)
+    step = make_recursion_step(stage, sched_dev, n_parts, use_fixed_schedule,
+                               tempering_target, target, sharding)
+    state = _initial_state(cloud, device, c, cloud.tempering_schedule[-1], j,
+                           phi_prop, resampled_last, i, log_mdd)
     para_names = list(space.names)
 
     def shown(cloud):
@@ -431,10 +712,9 @@ def smc(loglikelihood: Callable,
                           use_fixed_schedule=use_fixed_schedule)
     diag.vprint(shown_verbose, "low", "SMC recursion starts...")
 
-    c_dev = torch.tensor(c, dtype=torch.float64, device=device)
-    accept_rate = torch.tensor(cloud.accept_rate, dtype=torch.float64,
-                               device=device)
     host_reads = 0
+    masked = 0
+    capture_seconds = 0.0
     chain_lengths: List[int] = []
     with contextlib.ExitStack() as profiling:
         if profile_dir:
@@ -442,78 +722,132 @@ def smc(loglikelihood: Callable,
             acts = [ProfilerActivity.CPU] + (
                 [ProfilerActivity.CUDA] if device.type == "cuda" else [])
             prof = profiling.enter_context(profile(activities=acts))
-        phi_n = float(cloud.tempering_schedule[-1]) if continue_intermediate \
-            else 0.0
-        timer = diag.StageTimer()
-        while phi_n < 1.0:
-            i += 1
-            cloud.stage_index = i
-            phi_n1 = float(cloud.tempering_schedule[-1])
-            state = (cloud.params, cloud.loglh, cloud.logprior,
-                     cloud.old_loglh, cloud.weights)
-            if sharding is not None:
-                state = sharding.gather(*state)
-            if use_fixed_schedule:
-                phi_arg, read_along = float(sched[i - 1]), ()
-            else:
-                ess_bar = tempering_target * (
-                    float(n_parts) if resampled_last else cloud.ESS[-1])
-                phi_arg, j_dev, prop_dev = solve_adaptive_phi(
-                    state[1], state[4], state[3], phi_n1, sched, j, phi_prop,
-                    ess_bar)
-                read_along = (phi_arg, j_dev.to(torch.float64), prop_dev)
-            resampled_last = False
-            c_dev = _logistic_c_update(c_dev, accept_rate, target)
-            (cloud.params, cloud.loglh, cloud.logprior, cloud.old_loglh,
-             cloud.weights, cloud.accept, inc_w, W_col, ess, did_resample,
-             accept_rate, mdd_inc, info) = stage(
-                draws, *state, phi_arg, phi_n1, c_dev, read_along)
-            host_reads += 1
-            if use_fixed_schedule:
-                phi_n = phi_arg
-            else:
-                phi_n, j, phi_prop = info["read"]
-                j = int(j)
-            cloud.tempering_schedule.append(phi_n)
-            cloud.ESS.append(ess)
-            if math.isnan(ess):
-                diag.check_nan_ess(whole(cloud), i, inc_w, W_col,
-                                   savepath or "smc_cloud.npz",
-                                   debug_assertion and root)
-            if did_resample:
-                cloud.resamples += 1
-                resampled_last = True
-                if "chain_length" in info:
-                    chain_lengths.append(info["chain_length"])
+        if use_fused:
+            full = int(fused_chunk_stages or (min(25, n_phi)
+                                              if verbose == "low" else n_phi))
+            first = min(3, full) if verbose == "low" else full
+            fused_rec = FusedRecursion(step, draws, state, full, n_parts,
+                                       store_weight_matrices)
+            stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                      else None)
+            with contextlib.ExitStack() as on_stream:
+                if stream is not None:
+                    stream.wait_stream(torch.cuda.current_stream(device))
+                    on_stream.enter_context(torch.cuda.stream(stream))
+                remaining = n_phi - 1 if use_fixed_schedule else None
+                size = first
+                timer = diag.StageTimer()
+                while True:
+                    if remaining is not None:
+                        size = min(size, remaining)
+                    fused_rec.buffers["k"].zero_()
+                    watch = (None if use_fixed_schedule else
+                             _DoneWatch(device, size))
+                    issued = 0
+                    while issued < size:
+                        fused_rec.run_stage()
+                        issued += 1
+                        if watch is not None and watch.after_stage(
+                                fused_rec.buffers["done"]):
+                            break
+                    n_in, traces, nan_ess, done = fused_rec.read_chunk()
                     host_reads += 1
-            log_mdd += mdd_inc
-            if store_weight_matrices:
-                w_cols.append(inc_w)
-                W_cols.append(W_col)
-            dt = timer.lap()
-            cloud.total_sampling_time += dt
-            checkpoint = (save_intermediate and savepath
-                          and i % intermediate_stage_increment == 0)
-            if verbose != "none" or checkpoint:
-                cloud.c, cloud.accept_rate = torch.stack(
-                    [c_dev, accept_rate]).tolist()
+                    masked += issued - n_in
+                    if remaining is not None:
+                        remaining -= issued
+                    dt = timer.lap()
+                    cloud.total_sampling_time += dt
+                    resamples_before = cloud.resamples
+                    cloud.tempering_schedule += traces["phi"].tolist()
+                    cloud.ESS += traces["ess"].tolist()
+                    cloud.resamples += int(traces["resampled"].sum())
+                    if store_weight_matrices:
+                        w_cols.append(fused_rec.w[:n_in].clone())
+                        W_cols.append(fused_rec.W[:n_in].clone())
+                    diag.chunk_stage_prints(
+                        traces, n_in, first_stage=i + 1,
+                        total_stages=n_phi if use_fixed_schedule else None,
+                        chunk_time=dt, resamples_before=resamples_before,
+                        verbose=shown_verbose)
+                    i += n_in
+                    cloud.stage_index = i
+                    if nan_ess:
+                        nan = torch.full((n_parts,), math.nan)
+                        inc_last, W_last = (
+                            (fused_rec.w[n_in - 1], fused_rec.W[n_in - 1])
+                            if store_weight_matrices else (nan, nan))
+                        for f in ("params", "loglh", "weights"):
+                            setattr(cloud, f, fused_rec.buffers[f])
+                        diag.check_nan_ess(cloud, i, inc_last, W_last,
+                                           savepath or "smc_cloud.npz",
+                                           debug_assertion)
+                    if done or remaining == 0:
+                        break
+                    size = full
+                b = fused_rec.buffers
+                (cloud.c, cloud.accept_rate, log_mdd, j,
+                 phi_prop) = torch.stack([
+                     b["c"], b["accept_rate"], b["log_mdd"], b["j"].to(_F64),
+                     b["phi_prop"]]).tolist()
                 host_reads += 1
-            diag.end_stage_print(shown(cloud), para_names,
-                                 verbose=shown_verbose,
-                                 use_fixed_schedule=use_fixed_schedule,
-                                 stage_time=dt)
-            if run_test and i == 3:
-                break
-            if checkpoint:
-                saved = whole(cloud)
-                if root:
-                    smc_io.save_checkpoint(
-                        savepath, i, saved, _stack(w_cols, n_parts),
-                        _stack(W_cols, n_parts), j, phi_prop, log_mdd,
-                        draws.get_state())
-                    host_reads += 1
-                if sharding is not None:
-                    sharding.barrier()
+            if stream is not None:
+                torch.cuda.current_stream(device).wait_stream(stream)
+            for f in ("params", "loglh", "logprior", "old_loglh", "weights",
+                      "accept"):
+                setattr(cloud, f, fused_rec.buffers[f])
+            capture_seconds = fused_rec.capture_seconds
+        else:
+            timer = diag.StageTimer()
+            phi_n = float(cloud.tempering_schedule[-1])
+            while phi_n < 1.0:
+                i += 1
+                cloud.stage_index = i
+                state, ex = step(draws, state)
+                (phi_n, ess, mdd_inc, did, cloud.c, cloud.accept_rate, j,
+                 phi_prop) = torch.stack([
+                     state["phi"], state["ess_prev"], ex["mdd_inc"],
+                     state["resampled_last"].to(_F64), state["c"],
+                     state["accept_rate"], state["j"].to(_F64),
+                     state["phi_prop"]]).tolist()
+                j = int(j)
+                host_reads += 1 + ex["info"]["host_reads"]
+                for f in ("params", "loglh", "logprior", "old_loglh",
+                          "weights", "accept"):
+                    setattr(cloud, f, state[f])
+                cloud.tempering_schedule.append(phi_n)
+                cloud.ESS.append(ess)
+                if math.isnan(ess):
+                    diag.check_nan_ess(whole(cloud), i, ex["inc_w"],
+                                       ex["W_col"],
+                                       savepath or "smc_cloud.npz",
+                                       debug_assertion and root)
+                if did:
+                    cloud.resamples += 1
+                    if "chain_length" in ex["info"]:
+                        chain_lengths.append(ex["info"]["chain_length"])
+                log_mdd += mdd_inc
+                if store_weight_matrices:
+                    w_cols.append(ex["inc_w"])
+                    W_cols.append(ex["W_col"])
+                dt = timer.lap()
+                cloud.total_sampling_time += dt
+                diag.end_stage_print(shown(cloud), para_names,
+                                     verbose=shown_verbose,
+                                     use_fixed_schedule=use_fixed_schedule,
+                                     stage_time=dt)
+                if run_test and i == 3:
+                    break
+                if (save_intermediate and savepath
+                        and i % intermediate_stage_increment == 0):
+                    saved = whole(cloud)
+                    if root:
+                        smc_io.save_checkpoint(
+                            savepath, i, saved, _stack(w_cols, n_parts),
+                            _stack(W_cols, n_parts), j, phi_prop, log_mdd,
+                            draws.get_state())
+                        host_reads += 1
+                    if sharding is not None:
+                        sharding.barrier()
         if profile_dir:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
@@ -523,7 +857,6 @@ def smc(loglikelihood: Callable,
                 prof.export_chrome_trace(os.path.join(profile_dir,
                                                       "smc_trace.json"))
 
-    cloud.c, cloud.accept_rate = torch.stack([c_dev, accept_rate]).tolist()
     cloud = whole(cloud)
     w_matrix = W_matrix = None
     if store_weight_matrices:
@@ -541,7 +874,9 @@ def smc(loglikelihood: Callable,
         sharding.barrier()
     return SMCResult(cloud=cloud, w=w_matrix, W=W_matrix, log_mdd=log_mdd,
                      para_names=para_names, space=space,
-                     init_rounds=init_rounds, host_reads=host_reads,
+                     init_rounds=init_rounds, fused=use_fused,
+                     host_reads=host_reads, masked_stages=masked,
+                     capture_seconds=capture_seconds,
                      chain_lengths=chain_lengths,
                      collectives=0 if sharding is None else
                      sharding.collectives,
@@ -550,7 +885,9 @@ def smc(loglikelihood: Callable,
 
 
 def _stack(cols: List[torch.Tensor], n_parts: int) -> np.ndarray:
-    """Weight columns as one host matrix [N, len(cols)]."""
+    """Weight columns as one host matrix [N, n_stages + 1]: each entry of
+    `cols` is one column [N] or a fused chunk's rows [n, N]."""
     if not cols:
         return np.zeros((n_parts, 0))
-    return torch.stack(cols, dim=1).cpu().numpy()
+    rows = [c.reshape(-1, n_parts) for c in cols]
+    return torch.cat(rows).T.contiguous().cpu().numpy()

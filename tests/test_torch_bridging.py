@@ -91,10 +91,9 @@ def _stage_replay(skey, tspace, state, phi_n, phi_n1, threshold, resampled,
     _, norm_w, ess, _ = correct(loglh, old, weights, phi_n, phi_n1, OMEGA,
                                 LOG_PROB_OLD)
     assert bool(ess < threshold) == resampled
-    entries, w = [], norm_w
+    u = np.asarray(jax.random.uniform(kr, (), dtype=jnp.float64))
+    entries, w = [("uniform", u)], norm_w
     if resampled:
-        u = np.asarray(jax.random.uniform(kr, (), dtype=jnp.float64))
-        entries.append(("uniform", u))
         params = params[resample(ReplayDraws([("uniform", u)]), norm_w)]
         w = torch.ones_like(norm_w)
     perm = np.asarray(jax.random.permutation(kp, tspace.n_free))

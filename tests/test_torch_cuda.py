@@ -213,3 +213,108 @@ def test_one_rank_nccl_mesh_matches_unsharded(dev, tmp_path):
     np.testing.assert_allclose(got.cloud.loglh.cpu().numpy(),
                                want.cloud.loglh.cpu().numpy(), rtol=1e-12)
     assert got.collectives == 2 * 5 + 2
+
+
+@pytest.mark.parametrize("k,batch", [(3, 3), (12, 3), (13, 1), (36, 2),
+                                     (64, 1), (100, 2)])
+def test_eigh_kernel_matches_plain(dev, k, batch):
+    """The Jacobi kernel against torch.linalg.eigh on the card (the tests
+    of the CPU body's tolerances), one launch per call, NaN isolated; at
+    k = 100 the matrix and rotations sit in the global workspace."""
+    from smc_tpu_torch.ops import cuda_eigh
+    rng = np.random.default_rng(k)
+    x = rng.standard_normal((batch, k, k + 2))
+    a = torch.as_tensor(x @ x.transpose(0, 2, 1), device=dev)
+    before = cuda_eigh.LAUNCHES["eigh"]
+    lam, u = cuda_eigh.eigh(a)
+    assert cuda_eigh.LAUNCHES["eigh"] == before + 1
+    lam_p, u_p = cuda_eigh.eigh_plain(a)
+    scale = lam_p.abs().amax(dim=-1, keepdim=True)
+    assert bool((lam - lam_p).abs().le(1e-12 * scale).all())
+    eye = torch.eye(k, dtype=torch.float64, device=dev)
+    rec = u @ torch.diag_embed(lam) @ u.transpose(-1, -2)
+    nrm = torch.linalg.matrix_norm(a)
+    assert bool((torch.linalg.matrix_norm(rec - a) <= 1e-12 * nrm).all())
+    assert bool(((u.transpose(-1, -2) @ u - eye).abs() <= 1e-12).all())
+    a_nan = a.clone()
+    a_nan[0, k - 1, 0] = float("nan")
+    lam2, u2 = cuda_eigh.eigh(a_nan)
+    assert bool(torch.isnan(lam2[0]).all() and torch.isnan(u2[0]).all())
+    assert torch.equal(lam2[1:], lam[1:]) and torch.equal(u2[1:], u[1:])
+
+
+def _as_fused_recursion(dev, n=1024, seed=4):
+    """A fused recursion of AS on the kernels from a prior cloud."""
+    from smc_tpu_torch.ops.initialization import initial_draw
+    from smc_tpu_torch.ops.schedule import fixed_schedule
+    from smc_tpu_torch.params import ParamSpace
+    from smc_tpu_torch.rng import TorchDraws
+    from smc_tpu_torch.smc import (make_stage_core, make_recursion_step,
+                                   FusedRecursion, _initial_state)
+    model, data = tas.an_schorfheide(), tas.load_as_data()
+    space = ParamSpace(tas.an_schorfheide_parameters())
+    ll = lambda th: model.loglike_batched(th, data)
+    draws = TorchDraws(seed, dev)
+    cloud, _ = initial_draw(draws, space, ll, n, device=dev)
+    cloud.ESS, cloud.accept_rate = [float(n)], 0.25
+    stage = make_stage_core(space, ll, 1, 1, 0.9, "systematic", 0.5 * n)
+    sched = torch.as_tensor(fixed_schedule(100, 2.0), device=dev)
+    step = make_recursion_step(stage, sched, n, True, 0.97, 0.25)
+    state = _initial_state(cloud, dev, 0.5, 0.0, 1, 0.0, False, 1)
+    return FusedRecursion(step, draws, state, 4, n, True)
+
+
+def test_captured_as_stage_replays_the_eager_stage(dev):
+    """Stage 1 eager, stage 2 captured and replayed, against two eager
+    stages from the same cloud and generator: every buffer and trace bit
+    for bit, and each kernel counted once per replay."""
+    from smc_tpu_torch.ops import cuda_eigh
+    graphed, eager = _as_fused_recursion(dev), _as_fused_recursion(dev)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        graphed.run_stage()
+        before = (dict(cuda_dsge.LAUNCHES), dict(cuda_eigh.LAUNCHES))
+        graphed.run_stage()
+        counted = ({k: cuda_dsge.LAUNCHES[k] - before[0][k]
+                    for k in before[0]},
+                   cuda_eigh.LAUNCHES["eigh"] - before[1]["eigh"])
+        eager.body()
+        eager.body()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    torch.cuda.synchronize(dev)
+    assert graphed.graph is not None
+    assert counted == ({"re": 1, "kalman": 1}, 1)
+    for k, v in graphed.buffers.items():
+        assert torch.equal(v, eager.buffers[k]), k
+    for a, b in ((graphed.scalars, eager.scalars), (graphed.w, eager.w),
+                 (graphed.W, eager.W)):
+        assert torch.equal(a, b)
+    assert int(graphed.buffers["k"]) == 2
+
+
+def test_fused_as_run_equals_host_loop_on_card(dev):
+    """AS at 1,024 particles, 9 stages: fused (a graph replay per stage)
+    and the host loop give the same bits and the same kernel launches."""
+    import smc_tpu_torch
+    from smc_tpu_torch.ops import cuda_eigh
+    model = tas.an_schorfheide()
+    out = {}
+    for fused in (True, False):
+        before = dict(cuda_dsge.LAUNCHES), cuda_eigh.LAUNCHES["eigh"]
+        res = smc_tpu_torch.smc(
+            model.loglike_batched, tas.an_schorfheide_parameters(),
+            tas.load_as_data(), batched=True, n_parts=1024, n_phi=10,
+            lam=2.0, verbose="none", seed=2, device=dev, fused=fused)
+        launches = ({k: cuda_dsge.LAUNCHES[k] - before[0][k]
+                     for k in before[0]},
+                    cuda_eigh.LAUNCHES["eigh"] - before[1])
+        out[fused] = res, launches
+    (a, la), (b, lb) = out[True], out[False]
+    assert a.fused and not b.fused
+    assert la == lb
+    assert la[0] == {k: 1 + a.init_rounds + 9 for k in la[0]} and la[1] == 9
+    assert torch.equal(a.cloud.params, b.cloud.params)
+    assert a.log_mdd == b.log_mdd
+    np.testing.assert_array_equal(a.W, b.W)
+    assert a.host_reads == 2 and b.host_reads == 9

@@ -4,7 +4,9 @@ The host build runs the same group layout as the card (8 lanes per particle
 in the RE solve, 2 in the Kalman filter, 32 lanes per warp, the tile
 exchanges phase by phase), so this is
 the CPU's view of the kernels' arithmetic, pivoting and warp-wide exits; the
-kernels themselves run only on the card (chip_smoke.py)."""
+kernels themselves run only on the card (chip_smoke.py). The Jacobi eigh
+body (csrc/eigh_jacobi.cuh, through csrc/eigh_cpu.cpp, a block's threads
+phase by phase) is held against numpy.linalg.eigh the same way."""
 
 import ctypes
 import shutil
@@ -229,3 +231,113 @@ def test_spectral_bound_decision_near_one(lib, gap):
     assert torch.equal(ok, okp)
     assert bool(okp.all()) == (gap < 0) and bool((~okp).all()) == (gap > 0)
     np.testing.assert_allclose(X.numpy(), Xp.numpy(), rtol=1e-10, atol=1e-12)
+
+
+# --- the Jacobi eigh body ----------------------------------------------------
+
+EIGH_TOL = 1e-12
+
+
+@pytest.fixture(scope="module")
+def eigh_lib():
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the host version of the eigh body")
+    lib = ctypes.CDLL(str(_build.build_eigh_cpu_library()))
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.smc_eigh_cpu.argtypes = [I, L, P, P, P]
+    lib.smc_eigh_cpu.restype = I
+    return lib
+
+
+def _eigh_body(lib, a):
+    a = np.ascontiguousarray(a, np.float64)
+    k = a.shape[-1]
+    lam, u = np.empty(a.shape[:-1]), np.empty(a.shape)
+    assert lib.smc_eigh_cpu(k, a.size // (k * k), a.ctypes.data,
+                            lam.ctypes.data, u.ctypes.data) == 0
+    return lam, u
+
+
+def _symmetric(kind, k, rng):
+    """A symmetric k x k test matrix: SPD, rank-deficient PSD, diagonal,
+    or with each eigenvalue repeated (1, 2 and 5 over a random basis)."""
+    if kind == "spd":
+        x = rng.standard_normal((k, k + 3))
+        return x @ x.T
+    if kind == "rank_deficient":
+        x = rng.standard_normal((k, max(1, k // 2)))
+        return x @ x.T
+    if kind == "diagonal":
+        return np.diag(rng.standard_normal(k))
+    q, _ = np.linalg.qr(rng.standard_normal((k, k)))
+    a = (q * np.resize([1.0, 2.0, 5.0], k)) @ q.T
+    return 0.5 * (a + a.T)
+
+
+def _keep(lam, tol=1e-12):
+    """_deg_factor's mask of the eigenvalues it keeps."""
+    return lam > tol * max(lam.max(), 1e-300)
+
+
+@pytest.mark.parametrize("kind", ["spd", "rank_deficient", "diagonal",
+                                  "repeated"])
+@pytest.mark.parametrize("k", [1, 2, 3, 12, 13, 36, 64, 65, 100])
+def test_eigh_body_matches_numpy(eigh_lib, k, kind):
+    """Eigenvalues ascending within 1e-12 max|lam| of numpy's; U diag(lam) U'
+    within 1e-12 of A normwise; U'U within 1e-12 of I; the same kept
+    eigenvalues in _deg_factor; each column's largest entry positive. Past
+    k = 64 the matrix and rotations sit in the workspace, not shared
+    memory."""
+    rng = np.random.default_rng(100 * k + len(kind))
+    a = _symmetric(kind, k, rng)
+    lam, u = _eigh_body(eigh_lib, a)
+    want = np.linalg.eigh(a)[0]
+    scale = max(np.abs(want).max(), 1e-300)
+    assert np.all(np.diff(lam) >= 0)
+    assert np.abs(lam - want).max() <= EIGH_TOL * scale
+    assert (np.linalg.norm(u @ np.diag(lam) @ u.T - a)
+            <= EIGH_TOL * max(np.linalg.norm(a), 1e-300))
+    assert np.abs(u.T @ u - np.eye(k)).max() <= EIGH_TOL
+    np.testing.assert_array_equal(_keep(lam), _keep(want))
+    lead = u[np.argmax(np.abs(u), axis=0), np.arange(k)]
+    assert np.all(lead > 0)
+
+
+def test_eigh_body_batches_and_nan(eigh_lib):
+    """A batch gives each matrix's own decomposition bit for bit; a NaN
+    entry makes its matrix's results NaN and leaves the others alone."""
+    rng = np.random.default_rng(7)
+    a = np.stack([_symmetric("spd", 5, rng) for _ in range(3)])
+    a[1, 3, 2] = np.nan
+    lam, u = _eigh_body(eigh_lib, a)
+    assert np.isnan(lam[1]).all() and np.isnan(u[1]).all()
+    for b in (0, 2):
+        lb, ub = _eigh_body(eigh_lib, a[b])
+        np.testing.assert_array_equal(lam[b], lb)
+        np.testing.assert_array_equal(u[b], ub)
+
+
+def test_eigh_plain_has_the_kernel_form():
+    """The CPU path of ops/cuda_eigh.eigh (torch.linalg.eigh): ascending,
+    each column's largest entry positive, NaN for a non-finite matrix
+    without raising, the same factor as the body to 1e-12, and any k (the
+    kernel's limit, 1,024, binds only on a card)."""
+    from smc_tpu_torch.ops import cuda_eigh
+    rng = np.random.default_rng(9)
+    a = np.stack([_symmetric("spd", 13, rng), _symmetric("spd", 13, rng)])
+    a[1, 0, 0] = np.inf
+    lam, u = cuda_eigh.eigh(torch.as_tensor(a))
+    assert torch.isnan(lam[1]).all() and torch.isnan(u[1]).all()
+    lam0, u0 = lam[0].numpy(), u[0].numpy()
+    assert np.all(np.diff(lam0) > 0)
+    lead = u0[np.argmax(np.abs(u0), axis=0), np.arange(13)]
+    assert np.all(lead > 0)
+    np.testing.assert_allclose(u0 @ np.diag(lam0) @ u0.T, a[0],
+                               rtol=0, atol=EIGH_TOL * np.abs(a[0]).max())
+    big = _symmetric("spd", cuda_eigh.MAX_K + 1, rng)
+    lam_b, u_b = cuda_eigh.eigh(torch.as_tensor(big))
+    np.testing.assert_allclose(lam_b.numpy(), np.linalg.eigh(big)[0],
+                               rtol=0, atol=EIGH_TOL * np.abs(big).max()
+                               * cuda_eigh.MAX_K)
+    with pytest.raises(ValueError, match="k <= 1024"):
+        cuda_eigh.check_block(cuda_eigh.MAX_K + 1)

@@ -168,6 +168,7 @@ names = [m.name for m in pkgutil.walk_packages(smc_tpu_torch.__path__,
                                               "smc_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert "smc_tpu_torch.ops.cuda_eigh" in names
 assert "smc_tpu" not in sys.modules
 assert torch.get_default_dtype() == torch.float32
 print(len(names))

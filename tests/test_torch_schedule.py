@@ -80,6 +80,31 @@ def test_solve_adaptive_phi_matches_jax(case):
         assert got[1] == 100 and got[2] == 1.0 and got[0] == 1.0
 
 
+@pytest.mark.parametrize("case", list(CASES) + ["exhausted"])
+def test_device_j_matches_jax(case):
+    """The scalars as the recursion passes them (j an int64 tensor, phi_n1,
+    phi_prop and ess_bar f64 tensors, the schedule a tensor): the JAX
+    function's (phi_n, j, phi_prop), with j returned as an int64 scalar.
+    "exhausted" starts past the last entry (j = n_phi, phi_prop = 1)."""
+    scale, old, j0 = CASES.get(case, (1000.0, False, 100))
+    n = 2000
+    loglh, w, old_ll = _cloud(n, scale, seed=5, old=old)
+    sched = fixed_schedule(100, 2.0)
+    phi_n1, phi_prop = float(sched[j0 - 2]), float(sched[j0 - 1])
+    f64 = lambda x: torch.tensor(x, dtype=torch.float64)
+    phi, j, prop = solve_adaptive_phi(
+        torch.tensor(loglh), torch.tensor(w), torch.tensor(old_ll),
+        f64(phi_n1), torch.as_tensor(sched),
+        torch.tensor(j0, dtype=torch.int64), f64(phi_prop), f64(_target(w)))
+    assert j.dtype == torch.int64 and j.dim() == 0
+    got = (phi.item(), int(j), prop.item())
+    _, want = _both(loglh, w, old_ll, phi_n1, sched, j0, phi_prop,
+                    _target(w))
+    _assert_same(got, want)
+    if case == "exhausted":
+        assert got[1] == 100 and got[2] == 1.0 and phi_n1 < got[0] < 1.0
+
+
 def _loop_form(loglh, w, old_ll, phi_n1, sched, j, phi_prop, ess_bar):
     """The JAX package's while loop, one scalar ESS per candidate."""
     lw, ll, ol = (torch.log(torch.tensor(w)), torch.tensor(loglh),
@@ -136,13 +161,14 @@ def test_nan_likelihood_stops_the_advance():
 def test_adaptive_run_on_linear_fixture_matches_exact_means():
     """5,000 particles, n_phi = 300: the configuration at which the JAX
     package passed the 0.5 gate on 10 of 10 seeds. The schedule rises
-    strictly to 1, and each stage makes one host read."""
+    strictly to 1, and each stage of the host loop makes one host read."""
     data, X = generate_linear_data(seed=1793)
     exact = exact_linear_posterior(data, X)
     res = smc_tpu_torch.smc(make_linear_loglike(X), linear_parameters(), data,
                             n_parts=5000, n_phi=300, lam=2.1, alpha=0.9,
                             use_fixed_schedule=False, tempering_target=0.97,
-                            verbose="none", seed=21, device="cpu")
+                            verbose="none", seed=21, device="cpu",
+                            fused=False)
     sched = np.asarray(res.cloud.tempering_schedule)
     n_stages = len(sched) - 1
     assert np.all(np.diff(sched) > 0) and sched[-1] == 1.0

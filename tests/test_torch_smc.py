@@ -169,16 +169,30 @@ def test_same_seed_runs_are_bitwise_equal():
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    (dict(mesh=StubMesh(2), n_parts=401), ValueError, "divisible"),
-    (dict(fused=True), NotImplementedError, "ROADMAP")])
+    (dict(mesh=StubMesh(2), n_parts=401), ValueError, "divisible")])
 def test_unported_paths_raise(kwargs, error, match):
-    """fused=True is not ported; a mesh whose size does not divide n_parts
-    is refused before anything runs."""
+    """A mesh whose size does not divide n_parts is refused before anything
+    runs."""
     y, x = generate_regression_data(n=10, seed=1)
     kwargs = dict(dict(n_parts=10), **kwargs)
     with pytest.raises(error, match=match):
         smc_tpu_torch.smc(make_regression_loglike(x), regression_parameters(),
                           y, n_phi=3, device="cpu", **kwargs)
+
+
+def test_fused_runs_and_equals_the_host_loop():
+    """fused=True, refused by earlier slices, runs the recursion on device
+    buffers and gives the host loop's bits."""
+    y, x = generate_regression_data(n=10, seed=1)
+    run = lambda fused: smc_tpu_torch.smc(
+        make_regression_loglike(x), regression_parameters(), y, n_parts=64,
+        n_phi=12, verbose="none", device="cpu", seed=5, fused=fused)
+    a, b = run(True), run(False)
+    assert (a.fused, b.fused) == (True, False)
+    assert torch.equal(a.cloud.params, b.cloud.params)
+    assert a.log_mdd == b.log_mdd
+    np.testing.assert_array_equal(a.W, b.W)
+    assert a.cloud.tempering_schedule == b.cloud.tempering_schedule
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -103,11 +103,20 @@ def test_same_seed_same_run(regression):
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    (dict(mesh=StubMesh(3)), ValueError, "divisible by the mesh size 3"),
-    (dict(fused=True), NotImplementedError, "Queue A item 10")])
+    (dict(mesh=StubMesh(3)), ValueError, "divisible by the mesh size 3")])
 def test_refused_kwargs_raise(regression, kwargs, error, match):
     with pytest.raises(error, match=match):
         _run(regression, **kwargs)
+
+
+def test_fused_true_equals_fused_false(regression):
+    """The surface's fused=True runs, and its result is the host loop's
+    bit for bit."""
+    a, b = _run(regression, fused=True), _run(regression, fused=False)
+    assert a.fused and not b.fused
+    assert torch.equal(a.cloud.params, b.cloud.params)
+    assert a.log_mdd == b.log_mdd
+    assert a.cloud.ESS == b.cloud.ESS
 
 
 def test_accepted_kwargs_change_nothing(regression, tmp_path):
@@ -373,3 +382,55 @@ def test_single_particle_mutation_matches_jax():
                                        atol=TOL)
         accepted += float(got[4]) > 0
     assert 0 < accepted
+
+
+@pytest.mark.parametrize("name,means", [("xla", "plain"),
+                                        ("pallas", "kernel"),
+                                        ("plain", "plain"),
+                                        ("kernel", "kernel")])
+def test_an_schorfheide_takes_the_jax_backend_names(name, means):
+    """The JAX package's likelihood_backend names are taken: "xla" is the
+    plain path, "pallas" the kernels; both give the same likelihood on the
+    CPU (where the kernels' plain versions run)."""
+    from smc_tpu_torch.models import as_dsge as tas
+    from torch_parity import as_prior_draws
+    model = tas.an_schorfheide(likelihood_backend=name)
+    assert model.likelihood_backend == means
+    th = torch.as_tensor(as_prior_draws(8, seed=1))
+    want = tas.an_schorfheide(likelihood_backend="plain").loglike_batched(
+        th, tas.load_as_data())
+    got = model.loglike_batched(th, tas.load_as_data())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12)
+    with pytest.raises(ValueError, match="likelihood_backend"):
+        tas.an_schorfheide(likelihood_backend="cuda")
+
+
+def test_tempered_update_copies_each_data_array_once(monkeypatch):
+    """A tempered update of a DSGE model alternates its likelihood between
+    the new and the old data: each array is copied to the device once, not
+    once per likelihood call."""
+    from smc_tpu_torch.models import as_dsge as tas
+    from smc_tpu_torch.models import dsge as tdsge
+    data = tas.load_as_data()
+    old_data = np.ascontiguousarray(data[:, :40])
+    model = tas.an_schorfheide()
+    copies = []
+    as_tensor = torch.as_tensor
+
+    def counting(x, *args, **kwargs):
+        if x is data or x is old_data:
+            copies.append(x is data)
+        return as_tensor(x, *args, **kwargs)
+
+    monkeypatch.setattr(tdsge.torch, "as_tensor", counting)
+    calls = []
+    ll = lambda th, d: calls.append(d is data) or model.loglike_batched(th, d)
+    kw = dict(batched=True, n_parts=64, n_phi=4, lam=2.0, alpha=0.9,
+              verbose="none", device="cpu")
+    old = smc_tpu_torch.smc(ll, tas.an_schorfheide_parameters(), old_data,
+                            seed=1, **kw)
+    smc_tpu_torch.smc(ll, tas.an_schorfheide_parameters(), data, seed=2,
+                      old_data=old_data, old_cloud=old.cloud,
+                      log_prob_old_data=old.log_mdd, **kw)
+    assert sorted(copies) == [False, True]
+    assert calls.count(True) >= 4 and calls.count(False) >= 4

@@ -1,10 +1,11 @@
 """JAX draws recorded for replay through smc_tpu_torch.rng.ReplayDraws, for
 the parity tests (tests/test_torch_*.py). Not a test module itself.
 
-torch.linalg.eigh and jnp.linalg.eigh may return eigenvectors of opposite
-sign. The full-covariance step is c * (eps * sqrt_lam) @ U.T, so a column
-flipped by s_i is undone by replaying eps_i * s_i; the diagonal component
-(comp == 1) uses eps directly and gets it unflipped."""
+The port's eigh (ops/cuda_eigh.py: each eigenvector's largest-magnitude entry
+positive) and jnp.linalg.eigh may return eigenvectors of opposite sign. The
+full-covariance step is c * (eps * sqrt_lam) @ U.T, so a column flipped by
+s_i is undone by replaying eps_i * s_i; the diagonal component (comp == 1)
+uses eps directly and gets it unflipped."""
 
 import numpy as np
 import torch
@@ -13,13 +14,14 @@ import jax.numpy as jnp
 
 from smc_tpu_torch.cloud import weighted_cov
 from smc_tpu_torch.ops.correction import correct
+from smc_tpu_torch.ops.cuda_eigh import eigh
 from smc_tpu_torch.ops.resample import resample
 from smc_tpu_torch.rng import ReplayDraws
 
 
 def _eigh_signs(cov_b):
     Uj = np.asarray(jnp.linalg.eigh(jnp.asarray(cov_b))[1])
-    Ut = torch.linalg.eigh(torch.as_tensor(cov_b))[1].numpy()
+    Ut = eigh(torch.as_tensor(cov_b))[1].numpy()
     s = np.sign(np.sum(Uj * Ut, axis=0))
     assert np.all(np.abs(np.abs(np.sum(Uj * Ut, axis=0)) - 1) < 1e-8)
     return s
@@ -52,18 +54,17 @@ def replay_mutation(key, n, cov_free, perm, sizes, alpha):
 def stage_replay(skey, tspace, state, phi_n, phi_n1, threshold, resampled,
                  alpha=0.9):
     """Replay entries for one port stage (one block) from the JAX stage
-    key: the resampling uniform (only if the stage resamples), the
-    permutation, the mutation draws (sign-matched to the port's own block
-    covariance)."""
+    key: the resampling uniform (drawn on every stage, as JAX splits kr on
+    every stage), the permutation, the mutation draws (sign-matched to the
+    port's own block covariance)."""
     kr, kp, km = jax.random.split(skey, 3)
     params, loglh, logprior, old, weights = state
     _, norm_w, ess, _ = correct(loglh, old, weights, phi_n, phi_n1)
     assert bool(ess < threshold) == resampled
-    entries = []
+    u = np.asarray(jax.random.uniform(kr, (), dtype=jnp.float64))
+    entries = [("uniform", u)]
     w = norm_w
     if resampled:
-        u = np.asarray(jax.random.uniform(kr, (), dtype=jnp.float64))
-        entries.append(("uniform", u))
         params = params[resample(ReplayDraws([("uniform", u)]), norm_w)]
         w = torch.ones_like(norm_w)
     perm = np.asarray(jax.random.permutation(kp, tspace.n_free))
