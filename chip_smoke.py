@@ -528,6 +528,18 @@ def _loop_kind(res) -> str:
             f"{res.masked_stages} masked stages)")
 
 
+def _eigh_launch_gate(name, n_stages, n_blocks):
+    """One eigh launch per stage, whatever the number of blocks."""
+    from smc_tpu_torch.ops import cuda_eigh
+    n = cuda_eigh.LAUNCHES["eigh"]
+    print(f"# {name}: {n} eigh launches for {n_stages} stages of "
+          f"{n_blocks} blocks (one per stage)")
+    if n != n_stages:
+        raise RuntimeError(f"{name}: {n} eigh launches for {n_stages} "
+                           "stages: the blocks' factors did not come from "
+                           "one launch per stage")
+
+
 def _reset_launches():
     from smc_tpu_torch.ops import cuda_dsge, cuda_eigh
     for counts in (cuda_dsge.LAUNCHES, cuda_eigh.LAUNCHES):
@@ -582,9 +594,11 @@ def linear_phase(dev):
     cfg = dict(LIN_CONFIG, n_phi=3)
     _timed(lambda: smc_tpu_torch.smc(ll, linear_parameters(), data, **cfg,
                                      seed=1, device=dev))
+    _reset_launches()
     res, wall = _timed(lambda: smc_tpu_torch.smc(
         ll, linear_parameters(), data, **LIN_CONFIG, seed=0, device=dev))
     n_stages = len(res.cloud.tempering_schedule) - 1
+    _eigh_launch_gate("(a) linear fixture", n_stages, LIN_CONFIG["n_blocks"])
     _linear_gates("(a) linear fixture", res, exact)
     print(f"# (a) linear wall {wall:.4f} s, {n_stages} stages, "
           f"{1e3 * wall / n_stages:.4f} ms/stage, "
@@ -869,6 +883,7 @@ def sw_phase(dev):
           f"{res.cloud.resamples}; final accept {res.cloud.accept_rate:.4f}; "
           f"kernel launches {dict(cuda_dsge.LAUNCHES)}")
     _run_line("(f) SW", res, wall, SW_N_PARTS)
+    _eigh_launch_gate("(f) SW", len(sched) - 1, SW_CONFIG["n_blocks"])
     if not (sched[-1] == 1.0 and np.all(np.diff(sched) > 0)
             and bool(torch.isfinite(res.cloud.loglh).all())
             and np.isfinite(res.log_mdd)):
@@ -1210,15 +1225,14 @@ def eigh_bound(ks):
     return bound_ms(flop, nbytes)
 
 
-def eigh_gates(name, a):
-    """The Jacobi eigh kernel against torch.linalg.eigh on one matrix on the
-    card: eigenvalues within 1e-12 max|lam|, U diag(lam) U' within 1e-12 of
-    A normwise, U'U within 1e-12 of I, _deg_factor's kept eigenvalues
-    equal. Raises if one fails; returns the eigenvalues' max abs error."""
+def eigh_gates(name, a, lam, u):
+    """The eigh kernel's (lam, u) of one matrix a against torch.linalg.eigh
+    on the card: eigenvalues within 1e-12 max|lam|, U diag(lam) U' within
+    1e-12 of A normwise, U'U within 1e-12 of I, _deg_factor's kept
+    eigenvalues equal. Raises if one fails; returns the eigenvalues' max
+    abs error."""
     import torch
-    from smc_tpu_torch.ops import cuda_eigh
     k = a.shape[0]
-    lam, u = cuda_eigh.eigh(a)
     lam_l = torch.linalg.eigh(a)[0]
     scale = lam_l.abs().max()
     e_lam = ((lam - lam_l).abs().max() / scale).item()
@@ -1236,18 +1250,54 @@ def eigh_gates(name, a):
     return (lam - lam_l).abs().max().item()
 
 
+def _block_stacks(mats):
+    """The mutation's stacks of block matrices: the equal blocks, then a
+    smaller last one (ops/mutation.py block_factors)."""
+    import torch
+    n_eq = sum(1 for m in mats if m.shape == mats[0].shape)
+    return [torch.stack(mats[:n_eq])] + [m[None] for m in mats[n_eq:]]
+
+
+def _batched_gates(name, mats):
+    """One eigh_batched launch on the blocks `mats`: each block within
+    eigh_gates, and bit for bit what a call on it alone gives. Returns the
+    largest eigenvalue error."""
+    import torch
+    from smc_tpu_torch.ops import cuda_eigh
+    before = cuda_eigh.LAUNCHES["eigh"]
+    out = cuda_eigh.eigh_batched(_block_stacks(mats))
+    if cuda_eigh.LAUNCHES["eigh"] != before + 1:
+        raise RuntimeError(f"(j) eigh {name}: not one launch")
+    got = [(lam[i], u[i]) for lam, u in out for i in range(lam.shape[0])]
+    err = 0.0
+    for a, (lam, u) in zip(mats, got):
+        err = max(err, eigh_gates(name, a, lam, u))
+        lam1, u1 = cuda_eigh.eigh(a)
+        if not (torch.equal(lam, lam1) and torch.equal(u, u1)):
+            raise RuntimeError(f"(j) eigh {name}: a block in the batched "
+                               "call differs from a call on it alone")
+    return err
+
+
+EIGH_SPD_KS = (36, 64, 100, 128)   # shared memory up to 118, then global
+
+
 def eigh_phase(dev, clouds):
-    """(j) The Jacobi eigh kernel against torch.linalg.eigh on the card at
-    the mutation's block shapes, from the posterior clouds: AS's 13x13 (one
-    block), the linear fixture's three 3x3 and SW's three 12x12, with
-    eigh_gates; then one SPD 100x100 (seed 0), past the kernel's
-    shared-memory size. Times per call (kernel, plain, library) and the
-    bound. Returns the kernels-line entry at AS's shape."""
+    """(j) The eigh kernel against torch.linalg.eigh on the card. At the
+    mutation's blocks of the posterior clouds (AS's 13x13, the linear
+    fixture's three 3x3, SW's three 12x12), each cell's blocks in one
+    batched launch as a stage makes it, with eigh_gates and bit for bit
+    against each block alone; a NaN block in SW's batch leaves the others'
+    bits; a batch of two sizes (12, 12, 11); then SPD matrices at
+    EIGH_SPD_KS. Times per call and per stage (kernel back to back and
+    replayed from a CUDA graph, plain, library) and the bound. Returns the
+    kernels-line entry at AS's shape."""
     import numpy as np
     import torch
     from smc_tpu_torch.cloud import weighted_cov
     from smc_tpu_torch.ops import cuda_eigh
     from smc_tpu_torch.ops.mutation import block_sizes
+    print(f"# (j) eigh: {smi_line()}")
     entry = None
     for name, cloud, space, n_blocks in clouds:
         vals = cloud.params[:, torch.as_tensor(space.free_inds, device=dev)]
@@ -1257,36 +1307,68 @@ def eigh_phase(dev, clouds):
                                                           n_blocks))])
         mats = [cov[o:e, o:e].contiguous() for o, e in zip(offs[:-1],
                                                           offs[1:])]
-        err = max(eigh_gates(name, a) for a in mats)
-        k = mats[0].shape[0]
-        a = mats[0]
-        ms = cuda_ms(lambda: cuda_eigh.eigh(a), 20)
-        in_graph_ms = graph_ms(lambda: cuda_eigh.eigh(a), 20)
-        plain_ms = cuda_ms(lambda: cuda_eigh.eigh_plain(a), 20)
-        lib_ms = cuda_ms(lambda: torch.linalg.eigh(a), 20)
-        bound, by = eigh_bound([k])
+        err = _batched_gates(name, mats)
+        stacks = _block_stacks(mats)
+        k, a = mats[0].shape[0], mats[0]
+        stage = lambda: cuda_eigh.eigh_batched(stacks)
+        ms, in_graph_ms = cuda_ms(stage, 20), graph_ms(stage, 20)
+        one_ms = cuda_ms(lambda: cuda_eigh.eigh(a), 20)
+        one_graph_ms = graph_ms(lambda: cuda_eigh.eigh(a), 20)
+        plain_ms = cuda_ms(lambda: [cuda_eigh.eigh_plain(x) for x in stacks],
+                           20)
+        lib_ms = cuda_ms(lambda: [torch.linalg.eigh(x) for x in stacks], 20)
+        lib_one_ms = cuda_ms(lambda: torch.linalg.eigh(a), 20)
+        bound, by = eigh_bound([m.shape[0] for m in mats])
         print(f"# (j) eigh {name}: {len(mats)} block(s) of k={k}, max abs "
-              f"err of the eigenvalues {err:.3e}, all gates held; per call "
+              f"err of the eigenvalues {err:.3e}, all gates held, batched "
+              f"bits equal each block's alone; per stage (one launch) "
               f"kernel {ms:.4f} ms ({in_graph_ms:.4f} ms replayed from a "
-              f"CUDA graph), plain {plain_ms:.4f} ms, "
-              f"torch.linalg.eigh {lib_ms:.4f} ms, bound {bound:.8f} ms "
-              f"({by}); per stage ({len(mats)} calls) "
-              f"kernel {len(mats) * ms:.4f} ms, library "
-              f"{len(mats) * lib_ms:.4f} ms")
+              f"CUDA graph), plain {plain_ms:.4f} ms, torch.linalg.eigh "
+              f"{lib_ms:.4f} ms, bound {bound:.8f} ms ({by}); per call at "
+              f"one block kernel {one_ms:.4f} ms ({one_graph_ms:.4f} ms "
+              f"graph), torch.linalg.eigh {lib_one_ms:.4f} ms")
         if entry is None:
             entry = dict(name="eigh_jacobi", route="cuda",
                          source="smc_tpu_torch/csrc/eigh_kernel.cu",
                          replaces="smc_tpu/ops/mutation.py:76",
                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound, bound_by=by, library_ms=lib_ms)
-    x = np.random.default_rng(0).standard_normal((100, 103))
-    big = torch.as_tensor(x @ x.T, device=dev)
-    err = eigh_gates("SPD", big)
-    ms = cuda_ms(lambda: cuda_eigh.eigh(big), 5)
-    print(f"# (j) eigh SPD k=100 (global workspace): max abs err of the "
-          f"eigenvalues {err:.3e}, all gates held; kernel {ms:.4f} ms, "
-          f"torch.linalg.eigh {cuda_ms(lambda: torch.linalg.eigh(big), 5):.4f}"
-          f" ms")
+        if name.startswith("SW"):
+            bad = stacks[0].clone()
+            bad[1, k - 1, 0] = float("nan")
+            lam, u = cuda_eigh.eigh(bad)
+            lam0, u0 = cuda_eigh.eigh(stacks[0])
+            keep = [i for i in range(bad.shape[0]) if i != 1]
+            if not (bool(torch.isnan(lam[1]).all() and torch.isnan(u[1]).all())
+                    and torch.equal(lam[keep], lam0[keep])
+                    and torch.equal(u[keep], u0[keep])):
+                raise RuntimeError("(j) eigh: a NaN block changed its "
+                                   "neighbours or was not NaN")
+            print("# (j) eigh: a NaN block in SW's batch gives NaN and "
+                  "leaves the other blocks' bits")
+    rng = np.random.default_rng(0)
+    mats = []
+    for k in (12, 12, 11):
+        x = rng.standard_normal((k, k + 3))
+        mats.append(torch.as_tensor(x @ x.T, device=dev))
+    err = _batched_gates("two sizes (12, 12, 11)", mats)
+    print(f"# (j) eigh two sizes (12, 12, 11) in one launch: max abs err "
+          f"{err:.3e}, all gates held, bits equal each block's alone")
+    for k in EIGH_SPD_KS:
+        x = np.random.default_rng(k).standard_normal((k, k + 3))
+        a = torch.as_tensor(x @ x.T, device=dev)
+        lam, u = cuda_eigh.eigh(a)
+        err = eigh_gates("SPD", a, lam, u)
+        reps = 5
+        ms = cuda_ms(lambda: cuda_eigh.eigh(a), reps)
+        in_graph_ms = graph_ms(lambda: cuda_eigh.eigh(a), reps)
+        lib_ms = cuda_ms(lambda: torch.linalg.eigh(a), reps)
+        path = ("shared memory" if k <= cuda_eigh.SHARED_K
+                else "global workspace")
+        print(f"# (j) eigh SPD k={k} ({path}): max abs err of the "
+              f"eigenvalues {err:.3e}, all gates held; kernel {ms:.4f} ms "
+              f"({in_graph_ms:.4f} ms graph), torch.linalg.eigh "
+              f"{lib_ms:.4f} ms")
     return entry
 
 

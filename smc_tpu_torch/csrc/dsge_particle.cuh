@@ -21,33 +21,24 @@
 // an [r, c, N] array is p[(i*c + j)*N + idx]; the 32 / G particles of a warp
 // are neighbours, so one load of row i fills whole 32-byte sectors.
 //
-// The same source runs on the card and on the host. On the card a lane is a
-// thread: SMC_LANES(l) runs its body once with l = the lane, Lanes<T> is the
-// lane's own T, smc_sync() is __syncwarp() and warp_any is __any_sync. Under
-// a host compiler (dsge_cpu.cpp) SMC_LANES(l) loops over the 32 lanes,
-// Lanes<T> holds one T per lane and smc_sync() does nothing: every phase
-// between two syncs runs for all lanes before the next one starts, which is
-// what __syncwarp() guarantees on the card. Code between two smc_sync() calls
-// reads only tile entries written before the first of them, and writes only
-// entries that no lane reads in that phase (or its own).
+// The same source runs on the card and on the host (lanes.cuh): on the card
+// SMC_LANES(l) runs its body once with l = the lane, Lanes<T> is the lane's
+// own T, smc_sync() is __syncwarp() and warp_any is __any_sync; under a host
+// compiler (dsge_cpu.cpp) SMC_LANES(l) loops over the 32 lanes phase by
+// phase. Code between two smc_sync() calls reads only tile entries written
+// before the first of them, and writes only entries that no lane reads in
+// that phase (or its own).
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
 
-#ifdef __CUDACC__
-#define SMC_HD __host__ __device__
-#define SMC_UNROLL _Pragma("unroll")
-#else
-#define SMC_HD
-#define SMC_UNROLL
-#endif
+#include "lanes.cuh"
 
 namespace smc {
 
 constexpr double kLog2Pi = 1.8378770664093453;
 constexpr int kNObs = 3;
-constexpr int kWarp = 32;
 // Lanes per particle of each kernel. The RE solve holds one matrix row per
 // lane at 8 (no spills, 4 particles per warp). The Kalman filter repeats its
 // 3x3 work (F, M, the innovation solves) on every lane of a group, so it
@@ -58,53 +49,6 @@ constexpr int kKalmanLanes = 2;
 
 SMC_HD inline bool is_finite(double x) { return x - x == 0.0; }
 SMC_HD inline bool is_nan(double x) { return x != x; }
-
-#ifdef __CUDA_ARCH__
-template <class T>
-struct Lanes {
-  T v;
-  __device__ T& operator[](int) { return v; }
-};
-#define SMC_LANES(l)                                                    \
-  for (int l = (int)(threadIdx.x % smc::kWarp), l##_once = 1; l##_once; \
-       l##_once = 0)
-__device__ inline void smc_sync() { __syncwarp(); }
-__device__ inline bool warp_any(Lanes<bool>& x) {
-  return __any_sync(0xffffffffu, x[0]);
-}
-#else
-template <class T>
-struct Lanes {
-  T v[kWarp];
-  T& operator[](int l) { return v[l]; }
-};
-#define SMC_LANES(l) for (int l = 0; l < smc::kWarp; ++l)
-inline void smc_sync() {}
-inline bool warp_any(Lanes<bool>& x) {
-  bool a = false;
-  for (int l = 0; l < kWarp; ++l) a = a || x[l];
-  return a;
-}
-#endif
-
-// v <- the sum of v over the G lanes of each group, by a butterfly of
-// shuffles: every lane of a group ends with the same bits (each addition is
-// of the same two values, in either order).
-template <int G, int K>
-SMC_HD inline void group_sum(Lanes<double[K]>& v) {
-#ifdef __CUDA_ARCH__
-  SMC_UNROLL for (int m = 1; m < G; m <<= 1)
-    SMC_UNROLL for (int k = 0; k < K; ++k)
-      v[0][k] += __shfl_xor_sync(0xffffffffu, v[0][k], m);
-#else
-  for (int m = 1; m < G; m <<= 1) {
-    static thread_local Lanes<double[K]> o;
-    o = v;
-    for (int l = 0; l < kWarp; ++l)
-      for (int k = 0; k < K; ++k) v[l][k] = o[l][k] + o[l ^ m][k];
-  }
-#endif
-}
 
 // Group geometry: G lanes per particle, RPL rows per lane, kPerWarp
 // particles per warp.

@@ -8,25 +8,30 @@ waits for the device and cannot be captured in a CUDA graph; the kernel
 does neither.
 
 Dispatch: a CPU tensor runs the plain version (`torch.linalg.eigh`), at any
-k; a CUDA tensor launches the kernel (k <= MAX_K), or raises. Past SHARED_K
-the kernel keeps each matrix and its rotations in a workspace allocated
-here instead of shared memory. Both return the same form:
-eigenvalues ascending, each eigenvector's sign fixed so that its
-largest-magnitude entry (the first of equal ones) is positive, and NaN
-everywhere for a matrix with a non-finite entry (nothing raises, as with
-`jnp.linalg.eigh`). Only the lower triangle is read. `LAUNCHES["eigh"]`
-counts kernel launches, one per call that reaches the GPU.
+k; a CUDA tensor launches the kernel (k <= MAX_K), or raises. The kernel
+runs two warps per matrix up to k = 32, a block per matrix with the matrix
+in shared memory up to SHARED_K, and past it a block per matrix with the
+matrix in a workspace allocated here. `eigh_batched` takes one or two
+stacks of matrices (two sizes: the mutation's equal blocks and its smaller
+last one) in one launch; each matrix's result is bit for bit that of a call
+on it alone. Both versions return the same form: eigenvalues ascending,
+each eigenvector's sign fixed so that its largest-magnitude entry (the
+first of equal ones) is positive, and NaN everywhere for a matrix with a
+non-finite entry (nothing raises, as with `jnp.linalg.eigh`). Only the
+lower triangle is read. `LAUNCHES["eigh"]` counts kernel launches, one per
+call that reaches the GPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, Sequence, Tuple
 
 import torch
 
 LAUNCHES = {"eigh": 0}
 MAX_K = 1024     # smc_jacobi::kMaxK
-SHARED_K = 64    # smc_jacobi::kSharedK
+SHARED_K = 118   # smc_jacobi::kSharedK
 
 _lib = None
 _prepared = set()
@@ -41,7 +46,7 @@ def _library(device: torch.device):
         from smc_tpu_torch import _build
         lib = ctypes.CDLL(str(_build.build_cuda_library("eigh")))
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.smc_eigh.argtypes = [I, L, P, P, P, P, P]
+        lib.smc_eigh.argtypes = [I, L, I, L, P, P, P, P, P]
         lib.smc_eigh.restype = I
         lib.smc_eigh_prepare.argtypes = []
         lib.smc_eigh_prepare.restype = I
@@ -79,34 +84,85 @@ def check_block(k: int) -> None:
                          "blocks (n_blocks)")
 
 
-def eigh(A: torch.Tensor):
-    """(lam [..., k], U [..., k, k]) of the symmetric f64 matrices
-    A [..., k, k]: A = U diag(lam) U'. On the card k <= MAX_K."""
+def _check_square(A: torch.Tensor) -> None:
     if A.dim() < 2 or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"eigh needs square matrices, not {tuple(A.shape)}")
     if A.dtype != torch.float64:
         raise ValueError(f"eigh needs float64, not {A.dtype}")
+
+
+def eigh(A: torch.Tensor):
+    """(lam [..., k], U [..., k, k]) of the symmetric f64 matrices
+    A [..., k, k]: A = U diag(lam) U'. On the card k <= MAX_K."""
+    _check_square(A)
     if A.device.type == "cpu":
         return eigh_plain(A)
-    if A.device.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {A.device}")
-    k = A.shape[-1]
-    check_block(k)
     a = A.contiguous()
-    batch = a.numel() // (k * k)
     lam = torch.empty(A.shape[:-1], dtype=torch.float64, device=A.device)
-    U = torch.empty(A.shape, dtype=torch.float64, device=A.device)
-    if batch == 0:
-        return lam, U
-    work = (torch.empty(batch * 2 * k * (k | 1), dtype=torch.float64,
-                        device=A.device) if k > SHARED_K else None)
-    lib = _library(A.device)
-    with torch.cuda.device(A.device):
-        rc = lib.smc_eigh(k, batch, a.data_ptr(), lam.data_ptr(),
-                          U.data_ptr(), None if work is None
-                          else work.data_ptr(),
-                          torch.cuda.current_stream(A.device).cuda_stream)
+    U = torch.empty_like(a)
+    _launch(a, lam, U, [(A.shape[-1], a.numel() // max(A.shape[-1], 1) ** 2)])
+    return lam, U
+
+
+def eigh_batched(stacks: Sequence[torch.Tensor]
+                 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """[(lam, U)] of one or two stacks of symmetric f64 matrices
+    [..., k_i, k_i] on one device, in one kernel launch on a card; each
+    matrix's (lam, U) is bit for bit what eigh gives it alone."""
+    if not 1 <= len(stacks) <= 2:
+        raise ValueError(f"eigh_batched takes one or two stacks, not "
+                         f"{len(stacks)}")
+    if len(stacks) == 1:
+        return [eigh(stacks[0])]
+    for A in stacks:
+        _check_square(A)
+    dev = stacks[0].device
+    if stacks[1].device != dev:
+        raise ValueError("eigh_batched needs its stacks on one device")
+    if dev.type == "cpu":
+        return [eigh_plain(A) for A in stacks]
+    parts = [(A.shape[-1], A.numel() // max(A.shape[-1], 1) ** 2)
+             for A in stacks]
+    a = torch.cat([A.reshape(-1) for A in stacks])
+    lam = torch.empty(sum(n * k for k, n in parts), dtype=torch.float64,
+                      device=dev)
+    U = torch.empty_like(a)
+    _launch(a, lam, U, parts)
+    out, lo, uo = [], 0, 0
+    for A, (k, n) in zip(stacks, parts):
+        out.append((lam[lo:lo + n * k].view(A.shape[:-1]),
+                    U[uo:uo + n * k * k].view(A.shape)))
+        lo, uo = lo + n * k, uo + n * k * k
+    return out
+
+
+def _launch(a, lam, U, parts) -> None:
+    """The kernel on the packed matrices a (parts: [(k, n)], one or two)
+    into lam and U, on the current stream of a's device; raises unless it
+    launched."""
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {dev}")
+    for k, _ in parts:
+        check_block(k)
+    if sum(n for _, n in parts) == 0:
+        return
+    # A and V at the kernel's row stride, smc_jacobi::stride
+    nw = sum(n * 2 * k * (k + ((2 - k) & 3)) for k, n in parts
+             if k > SHARED_K)
+    work = (torch.empty(nw, dtype=torch.float64, device=dev) if nw
+            else None)
+    k0, n0 = parts[0]
+    k1, n1 = parts[1] if len(parts) > 1 else (k0, 0)
+    lib = _library(dev)
+    args = (k0, n0, k1, n1, a.data_ptr(), lam.data_ptr(), U.data_ptr(),
+            None if work is None else work.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if torch.cuda.current_device() == dev.index:
+        rc = lib.smc_eigh(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = lib.smc_eigh(*args)
     if rc != 0:
         raise RuntimeError(f"eigh kernel launch failed (CUDA error {rc})")
     LAUNCHES["eigh"] += 1
-    return lam, U

@@ -13,14 +13,16 @@ and is accepted with probability
   exp[phi_n (l_new - l) + (1-phi_n)(l_old_new - l_old) + (p_new - p) + q_rev - q_fwd].
 `accept` counts the fraction of parameters moved.
 
-The whole cloud mutates at once: the block's covariance factor (an eigh
-pseudo-inverse that tolerates rank deficiency) is computed once per block,
-everything else is batched over [N, ...]. The eigh is ops/cuda_eigh.py's: the
-Jacobi kernel on a card, torch.linalg.eigh on the CPU, so nothing in a
-mutation copies from the host or reads back to it and a stage can be
-captured in a CUDA graph. Block columns are read and written with
-index_select/index_copy. Draws per block, in order: normal eps [N, k], the
-mixture component (categorical, when alpha < 1), the uniform [N].
+The whole cloud mutates at once: the blocks' covariance factors (an eigh
+pseudo-inverse that tolerates rank deficiency) come from one eigh call per
+mutation step, before the MH loop (cov_free and perm do not change within
+it), everything else is batched over [N, ...]. The eigh is
+ops/cuda_eigh.py's: the Jacobi kernel on a card, one launch for every
+block, torch.linalg.eigh on the CPU, so nothing in a mutation copies from
+the host or reads back to it and a stage can be captured in a CUDA graph.
+Block columns are read and written with index_select/index_copy. Draws per
+block, in order: normal eps [N, k], the mixture component (categorical,
+when alpha < 1), the uniform [N].
 
 In a tempered update (bridging) the proposals' likelihood on the old data
 comes from `old_loglike_batched`; without it, it is 0.
@@ -42,7 +44,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from smc_tpu_torch.ops.cuda_eigh import eigh
+from smc_tpu_torch.ops.cuda_eigh import eigh, eigh_batched
 from smc_tpu_torch.utils.misc import scrub_loglh
 
 _LOG_2PI = 1.8378770664093453
@@ -66,14 +68,37 @@ def _deg_factor(cov: torch.Tensor, tol: float = 1e-12):
     """Eigen factor of a PSD, possibly rank-deficient matrix:
     (U, sqrt_lam, inv_lam, rank, logdet_plus)."""
     lam, U = eigh(cov)
+    return _factor(lam, U, cov.dtype, tol)
+
+
+def _factor(lam, U, dtype, tol: float = 1e-12):
+    """_deg_factor from the eigendecomposition (lam, U)."""
     lam_max = torch.clamp(torch.max(lam), min=0.0)
     keep = lam > tol * torch.clamp(lam_max, min=1e-300)
     safe = torch.where(keep, lam, 1.0)
     sqrt_lam = torch.where(keep, torch.sqrt(safe), 0.0)
     inv_lam = torch.where(keep, 1.0 / safe, 0.0)
-    rank = keep.sum().to(cov.dtype)
+    rank = keep.sum().to(dtype)
     logdet = torch.sum(torch.where(keep, torch.log(safe), 0.0))
     return U, sqrt_lam, inv_lam, rank, logdet
+
+
+def block_factors(cov_free: torch.Tensor, perm: torch.Tensor,
+                  sizes: List[int]):
+    """Each block's proposal factor (U, sqrt_lam, inv_lam, rank, logdet,
+    diag_sd), the block being perm's next sizes[i] free ordinals, from one
+    eigh_batched call: the equal blocks as one stack, a smaller last block
+    as a second."""
+    offsets = np.concatenate([[0], np.cumsum(sizes)])[:-1]
+    covs = [cov_free[idx][:, idx] for idx in
+            (perm[int(o):int(o) + k] for o, k in zip(offsets, sizes))]
+    n_eq = sizes.count(sizes[0])
+    stacks = [torch.stack(covs[:n_eq])] + [c[None] for c in covs[n_eq:]]
+    eig = [(lam, U) for lams, Us in eigh_batched(stacks)
+           for lam, U in zip(lams.unbind(), Us.unbind())]
+    return [_factor(lam, U, cov.dtype)
+            + (torch.sqrt(torch.clamp(torch.diagonal(cov), min=0.0)),)
+            for (lam, U), cov in zip(eig, covs)]
 
 
 def _deg_logpdf(diff, U, inv_lam, rank, logdet, c):
@@ -112,15 +137,14 @@ def make_mutation_step(space, loglike_batched: Callable, n_blocks: int,
         dev = params.device
         c = torch.as_tensor(c, dtype=torch.float64, device=dev)
         free_inds = space.tensors(dev)["free_inds"]
+        factors = block_factors(cov_free, perm, sizes)
         accept_count = torch.zeros(n, dtype=torch.float64, device=dev)
         for _ in range(n_mh_steps):
-            for off, k in zip(offsets, sizes):
+            for off, k, factor in zip(offsets, sizes, factors):
+                U, sqrt_lam, inv_lam, rank, logdet, diag_sd = factor
                 idx_f = perm[int(off):int(off) + k]
                 idx_full = free_inds[idx_f]
                 mu_b = mean_free[idx_f]
-                cov_b = cov_free[idx_f][:, idx_f]
-                U, sqrt_lam, inv_lam, rank, logdet = _deg_factor(cov_b)
-                diag_sd = torch.sqrt(torch.clamp(torch.diagonal(cov_b), min=0.0))
                 theta_b = params.index_select(1, idx_full)
 
                 # mixture proposal draw

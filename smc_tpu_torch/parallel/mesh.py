@@ -43,6 +43,15 @@ PARTICLE_AXIS = "parts"
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
 
 
+def rank_device(rank: int, device=None) -> torch.device:
+    """The device of rank `rank`: `device` where the caller gives one, else
+    cuda:LOCAL_RANK (LOCAL_RANK defaults to the rank), whatever the
+    backend."""
+    if device is None:
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+    return torch.device(device)
+
+
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None, *,
@@ -58,18 +67,15 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     and `process_id` default to the WORLD_SIZE and RANK variables, or 1
     and 0. `backend` is given, never guessed: "nccl" for one card per rank,
     "gloo" for CPU tensors or for ranks sharing a card. The rank's device is
-    `device`, else cuda:LOCAL_RANK under NCCL (LOCAL_RANK defaults to the
-    rank), else the CPU; a CUDA device is made current with
-    torch.cuda.set_device. A failed initialization raises."""
+    rank_device(rank, device): cuda:LOCAL_RANK under either backend unless
+    the caller passes `device` (device="cpu" for CPU ranks); a CUDA device
+    is made current with torch.cuda.set_device, which raises where there is
+    no card. A failed initialization raises."""
     world = int(num_processes if num_processes is not None
                 else os.environ.get("WORLD_SIZE", 1))
     rank = int(process_id if process_id is not None
                else os.environ.get("RANK", 0))
-    if device is None:
-        device = (torch.device("cuda",
-                               int(os.environ.get("LOCAL_RANK", rank)))
-                  if backend == "nccl" else torch.device("cpu"))
-    device = torch.device(device)
+    device = rank_device(rank, device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     kwargs = dict(backend=backend, world_size=world, rank=rank,

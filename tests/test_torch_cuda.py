@@ -215,32 +215,62 @@ def test_one_rank_nccl_mesh_matches_unsharded(dev, tmp_path):
     assert got.collectives == 2 * 5 + 2
 
 
-@pytest.mark.parametrize("k,batch", [(3, 3), (12, 3), (13, 1), (36, 2),
-                                     (64, 1), (100, 2)])
-def test_eigh_kernel_matches_plain(dev, k, batch):
-    """The Jacobi kernel against torch.linalg.eigh on the card (the tests
-    of the CPU body's tolerances), one launch per call, NaN isolated; at
-    k = 100 the matrix and rotations sit in the global workspace."""
+def _spd(k, batch, seed, dev):
+    x = np.random.default_rng(seed).standard_normal((batch, k, k + 2))
+    return torch.as_tensor(x @ x.transpose(0, 2, 1), device=dev)
+
+
+def _assert_eigh_close(a, lam, u):
+    """The tests of the CPU body's tolerances, against torch.linalg.eigh."""
     from smc_tpu_torch.ops import cuda_eigh
-    rng = np.random.default_rng(k)
-    x = rng.standard_normal((batch, k, k + 2))
-    a = torch.as_tensor(x @ x.transpose(0, 2, 1), device=dev)
-    before = cuda_eigh.LAUNCHES["eigh"]
-    lam, u = cuda_eigh.eigh(a)
-    assert cuda_eigh.LAUNCHES["eigh"] == before + 1
-    lam_p, u_p = cuda_eigh.eigh_plain(a)
+    k = a.shape[-1]
+    lam_p, _ = cuda_eigh.eigh_plain(a)
     scale = lam_p.abs().amax(dim=-1, keepdim=True)
     assert bool((lam - lam_p).abs().le(1e-12 * scale).all())
-    eye = torch.eye(k, dtype=torch.float64, device=dev)
+    eye = torch.eye(k, dtype=torch.float64, device=a.device)
     rec = u @ torch.diag_embed(lam) @ u.transpose(-1, -2)
     nrm = torch.linalg.matrix_norm(a)
     assert bool((torch.linalg.matrix_norm(rec - a) <= 1e-12 * nrm).all())
     assert bool(((u.transpose(-1, -2) @ u - eye).abs() <= 1e-12).all())
+
+
+@pytest.mark.parametrize("k,batch", [(3, 3), (12, 3), (13, 1), (31, 2),
+                                     (32, 20), (33, 2), (36, 2), (64, 1),
+                                     (100, 2), (118, 1), (119, 1), (128, 2)])
+def test_eigh_kernel_matches_plain(dev, k, batch):
+    """The Jacobi kernel against torch.linalg.eigh on the card, one launch
+    per call, NaN isolated, at each path's edges: two warps per matrix up
+    to k = 32 (20 matrices: several blocks of teams), a block with the
+    matrix in shared memory up to 118, past it the global workspace."""
+    from smc_tpu_torch.ops import cuda_eigh
+    a = _spd(k, batch, k, dev)
+    before = cuda_eigh.LAUNCHES["eigh"]
+    lam, u = cuda_eigh.eigh(a)
+    assert cuda_eigh.LAUNCHES["eigh"] == before + 1
+    _assert_eigh_close(a, lam, u)
     a_nan = a.clone()
     a_nan[0, k - 1, 0] = float("nan")
     lam2, u2 = cuda_eigh.eigh(a_nan)
     assert bool(torch.isnan(lam2[0]).all() and torch.isnan(u2[0]).all())
     assert torch.equal(lam2[1:], lam[1:]) and torch.equal(u2[1:], u[1:])
+
+
+@pytest.mark.parametrize("sizes", [(12, 12, 11), (33, 32), (128, 118)])
+def test_eigh_kernel_two_sizes_in_one_launch(dev, sizes):
+    """The mutation's block split (equal blocks, a smaller last one) in one
+    launch: each matrix's bits equal a call on it alone, and the gates of
+    test_eigh_kernel_matches_plain hold."""
+    from smc_tpu_torch.ops import cuda_eigh
+    first = _spd(sizes[0], len(sizes) - 1, sum(sizes), dev)
+    last = _spd(sizes[-1], 1, sizes[-1], dev)
+    before = cuda_eigh.LAUNCHES["eigh"]
+    (lam0, u0), (lam1, u1) = cuda_eigh.eigh_batched([first, last])
+    assert cuda_eigh.LAUNCHES["eigh"] == before + 1
+    for a, lam, u in ((first, lam0, u0), (last, lam1, u1)):
+        _assert_eigh_close(a, lam, u)
+        for i in range(a.shape[0]):
+            lam_i, u_i = cuda_eigh.eigh(a[i])
+            assert torch.equal(lam[i], lam_i) and torch.equal(u[i], u_i)
 
 
 def _as_fused_recursion(dev, n=1024, seed=4):
@@ -318,3 +348,22 @@ def test_fused_as_run_equals_host_loop_on_card(dev):
     assert a.log_mdd == b.log_mdd
     np.testing.assert_array_equal(a.W, b.W)
     assert a.host_reads == 2 and b.host_reads == 9
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_eigh_one_launch_per_stage_with_blocks(dev, fused):
+    """The linear fixture in 3 blocks of 3 at 2 MH steps per stage, fused
+    (graph replays) and on the host loop: one eigh launch per stage."""
+    import smc_tpu_torch
+    from smc_tpu_torch.models.linear import (linear_parameters,
+                                             make_linear_loglike,
+                                             generate_linear_data)
+    from smc_tpu_torch.ops import cuda_eigh
+    data, X = generate_linear_data(seed=1793)
+    before = cuda_eigh.LAUNCHES["eigh"]
+    res = smc_tpu_torch.smc(make_linear_loglike(X), linear_parameters(), data,
+                            n_parts=1024, n_phi=8, lam=2.1, n_blocks=3,
+                            n_mh_steps=2, verbose="none", seed=2, device=dev,
+                            fused=fused)
+    assert res.fused == fused
+    assert cuda_eigh.LAUNCHES["eigh"] - before == 7

@@ -5,8 +5,9 @@ in the RE solve, 2 in the Kalman filter, 32 lanes per warp, the tile
 exchanges phase by phase), so this is
 the CPU's view of the kernels' arithmetic, pivoting and warp-wide exits; the
 kernels themselves run only on the card (chip_smoke.py). The Jacobi eigh
-body (csrc/eigh_jacobi.cuh, through csrc/eigh_cpu.cpp, a block's threads
-phase by phase) is held against numpy.linalg.eigh the same way."""
+body (csrc/eigh_jacobi.cuh, through csrc/eigh_cpu.cpp, each matrix's warp
+or block of threads phase by phase) is held against numpy.linalg.eigh the
+same way."""
 
 import ctypes
 import shutil
@@ -244,18 +245,33 @@ def eigh_lib():
         pytest.skip("no g++ to build the host version of the eigh body")
     lib = ctypes.CDLL(str(_build.build_eigh_cpu_library()))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.smc_eigh_cpu.argtypes = [I, L, P, P, P]
+    lib.smc_eigh_cpu.argtypes = [I, L, I, L, P, P, P]
     lib.smc_eigh_cpu.restype = I
     return lib
 
 
 def _eigh_body(lib, a):
-    a = np.ascontiguousarray(a, np.float64)
-    k = a.shape[-1]
-    lam, u = np.empty(a.shape[:-1]), np.empty(a.shape)
-    assert lib.smc_eigh_cpu(k, a.size // (k * k), a.ctypes.data,
-                            lam.ctypes.data, u.ctypes.data) == 0
-    return lam, u
+    """(lam, u) of the stack a [..., k, k] through the host build."""
+    return _eigh_body_parts(lib, [a])[0]
+
+
+def _eigh_body_parts(lib, stacks):
+    """[(lam, u)] of one or two stacks of matrices in one call of the host
+    build (the kernel's launch of two parts)."""
+    stacks = [np.ascontiguousarray(a, np.float64) for a in stacks]
+    ks = [a.shape[-1] for a in stacks]
+    ns = [a.size // (k * k) for a, k in zip(stacks, ks)]
+    flat = np.concatenate([a.reshape(-1) for a in stacks])
+    lam, u = np.empty(sum(n * k for n, k in zip(ns, ks))), np.empty(flat.size)
+    assert lib.smc_eigh_cpu(ks[0], ns[0], ks[-1], ns[1] if len(ns) > 1 else 0,
+                            flat.ctypes.data, lam.ctypes.data,
+                            u.ctypes.data) == 0
+    out, lo, uo = [], 0, 0
+    for a, n, k in zip(stacks, ns, ks):
+        out.append((lam[lo:lo + n * k].reshape(a.shape[:-1]),
+                    u[uo:uo + n * k * k].reshape(a.shape)))
+        lo, uo = lo + n * k, uo + n * k * k
+    return out
 
 
 def _symmetric(kind, k, rng):
@@ -281,13 +297,14 @@ def _keep(lam, tol=1e-12):
 
 @pytest.mark.parametrize("kind", ["spd", "rank_deficient", "diagonal",
                                   "repeated"])
-@pytest.mark.parametrize("k", [1, 2, 3, 12, 13, 36, 64, 65, 100])
+@pytest.mark.parametrize("k", [1, 2, 3, 12, 13, 31, 32, 33, 36, 64, 65,
+                               100, 118, 119, 128])
 def test_eigh_body_matches_numpy(eigh_lib, k, kind):
     """Eigenvalues ascending within 1e-12 max|lam| of numpy's; U diag(lam) U'
     within 1e-12 of A normwise; U'U within 1e-12 of I; the same kept
-    eigenvalues in _deg_factor; each column's largest entry positive. Past
-    k = 64 the matrix and rotations sit in the workspace, not shared
-    memory."""
+    eigenvalues in _deg_factor; each column's largest entry positive. Each
+    path at its edges: two warps per matrix up to k = 32, a block with the
+    matrix in shared memory up to 118, past it in the workspace."""
     rng = np.random.default_rng(100 * k + len(kind))
     a = _symmetric(kind, k, rng)
     lam, u = _eigh_body(eigh_lib, a)
@@ -315,6 +332,47 @@ def test_eigh_body_batches_and_nan(eigh_lib):
         lb, ub = _eigh_body(eigh_lib, a[b])
         np.testing.assert_array_equal(lam[b], lb)
         np.testing.assert_array_equal(u[b], ub)
+
+
+# the mutation's block splits (block_sizes): AS-sized blocks of 12, 12, 11;
+# 65 free parameters in two blocks (the small-team path and the block path
+# in one launch); the workspace path beside the shared-memory one
+TWO_SIZES = [(12, 12, 11), (33, 32), (119, 118)]
+
+
+@pytest.mark.parametrize("sizes", TWO_SIZES)
+def test_eigh_body_two_sizes_match_each_alone(eigh_lib, sizes):
+    """One call on a batch of two sizes (equal blocks, then a smaller last
+    one, as the mutation sends them) gives each matrix the bits of a call on
+    it alone."""
+    rng = np.random.default_rng(sum(sizes))
+    mats = [_symmetric("spd", k, rng) for k in sizes]
+    stacks = [np.stack(mats[:-1]), mats[-1][None]]
+    got = _eigh_body_parts(eigh_lib, stacks)
+    alone = [_eigh_body(eigh_lib, a) for a in mats]
+    got = [(lam[i], u[i]) for lam, u in got for i in range(lam.shape[0])]
+    for (lam, u), (lam1, u1) in zip(got, alone):
+        np.testing.assert_array_equal(lam, lam1)
+        np.testing.assert_array_equal(u, u1)
+
+
+@pytest.mark.parametrize("sizes", TWO_SIZES)
+def test_eigh_body_nan_leaves_its_neighbours(eigh_lib, sizes):
+    """A NaN matrix among converging ones of both sizes (neighbours in one
+    block of warps on the card, or in the next block) gives NaN and leaves
+    every other matrix bitwise as a call on it alone gives it."""
+    rng = np.random.default_rng(3 + sum(sizes))
+    k0, k1 = sizes[0], sizes[-1]
+    first = np.stack([_symmetric("spd", k0, rng) for _ in range(3)])
+    last = np.stack([_symmetric("spd", k1, rng) for _ in range(2)])
+    first[1, k0 - 1, 0] = np.nan
+    (lam0, u0), (lam1, u1) = _eigh_body_parts(eigh_lib, [first, last])
+    assert np.isnan(lam0[1]).all() and np.isnan(u0[1]).all()
+    for lam, u, a in ((lam0[0], u0[0], first[0]), (lam0[2], u0[2], first[2]),
+                      (lam1[0], u1[0], last[0]), (lam1[1], u1[1], last[1])):
+        want_lam, want_u = _eigh_body(eigh_lib, a)
+        np.testing.assert_array_equal(lam, want_lam)
+        np.testing.assert_array_equal(u, want_u)
 
 
 def test_eigh_plain_has_the_kernel_form():

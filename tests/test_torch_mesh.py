@@ -227,3 +227,27 @@ def test_replayed_stage_matches_jax(runs):
         np.testing.assert_allclose(r["mdd_inc"], want["mdd_inc"],
                                    rtol=REPLAY_TOL)
     np.testing.assert_array_equal(per_rank[0]["W_col"], per_rank[1]["W_col"])
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_initialize_multihost_defaults_to_the_card(monkeypatch, backend):
+    """With no `device`, a rank's device is cuda:LOCAL_RANK (the rank where
+    LOCAL_RANK is unset) under either backend; the CPU only when asked.
+    The process group and the card are stood in for, so nothing is
+    joined."""
+    from smc_tpu_torch.parallel import mesh
+    joined, current = [], []
+    monkeypatch.setattr(mesh.dist, "init_process_group",
+                        lambda **kw: joined.append(kw))
+    monkeypatch.setattr(mesh.torch.cuda, "set_device", current.append)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    dev = mesh.initialize_multihost(num_processes=4, process_id=3,
+                                    backend=backend, store=object())
+    assert dev == torch.device("cuda", 3) and current == [dev]
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert mesh.rank_device(3) == torch.device("cuda", 1)
+    dev = mesh.initialize_multihost(num_processes=4, process_id=3,
+                                    backend=backend, device="cpu",
+                                    store=object())
+    assert dev == torch.device("cpu") and len(current) == 1
+    assert [kw["backend"] for kw in joined] == [backend, backend]

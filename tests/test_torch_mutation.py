@@ -97,3 +97,52 @@ def test_mutation_as_one_block_matches_jax():
     perm = np.random.default_rng(7).permutation(13)
     _run_both(jspace, tspace, jll, tll, th, n_blocks=1, alpha=0.9,
               perm=perm, phi=0.3, seed=8, c=0.3)
+
+
+@pytest.mark.parametrize("n_blocks,n_mh_steps", [(3, 2), (2, 1), (1, 3)])
+def test_one_eigh_call_per_mutation_step(monkeypatch, n_blocks, n_mh_steps):
+    """Every block's factor comes from one eigh_batched call per mutation
+    step (AS's 13 parameters in blocks of 5, 5, 3; 7, 6; 13), whatever
+    n_mh_steps: the equal blocks as one stack, a smaller last one as a
+    second. The step's results are bit for bit those of a factor per block
+    from its own eigh call."""
+    from smc_tpu_torch.ops import mutation
+    from smc_tpu_torch.rng import TorchDraws
+    space = ParamSpace(tas.an_schorfheide_parameters())
+    model, data = tas.an_schorfheide(), tas.load_as_data()
+    ll = lambda t: model.loglike_batched(t, data)
+    th = as_posterior_draws(128, seed=6, scale=0.01)
+    w = np.random.default_rng(5).uniform(0.5, 1.5, th.shape[0])
+    mu, cov = _cloud_moments(th, w)
+    th = torch.tensor(th)
+    args = (th, ll(th), space.log_prior(th), torch.zeros(th.shape[0]),
+            torch.tensor(mu), torch.tensor(cov),
+            torch.tensor(np.random.default_rng(7).permutation(13)), 0.3,
+            0.4, 0.35)
+    step = mutation.make_mutation_step(space, ll, n_blocks, n_mh_steps, 0.9)
+    calls, batched = [], mutation.eigh_batched
+    monkeypatch.setattr(mutation, "eigh_batched", lambda stacks: (
+        calls.append([tuple(s.shape) for s in stacks]), batched(stacks))[1])
+    got = step(TorchDraws(3, "cpu"), *args)
+    sizes = block_sizes(13, n_blocks)
+    n_eq = sizes.count(sizes[0])
+    assert calls == [[(n_eq, sizes[0], sizes[0])]
+                     + [(1, k, k) for k in sizes[n_eq:]]]
+
+    def per_block(cov_free, perm, sizes):
+        out, o = [], 0
+        for k in sizes:
+            idx = perm[o:o + k]
+            cov_b = cov_free[idx][:, idx]
+            out.append(mutation._deg_factor(cov_b) + (torch.sqrt(
+                torch.clamp(torch.diagonal(cov_b), min=0.0)),))
+            o += k
+        return out
+
+    monkeypatch.setattr(mutation, "block_factors", per_block)
+    want = step(TorchDraws(3, "cpu"), *args)
+    assert len(calls) == 1
+    # accept_frac counts every MH step's moves over n_free
+    assert 0.05 < float(got[4].mean()) / n_mh_steps < 0.95
+    for g, w_ in zip(got, want):
+        assert torch.equal(g, w_)

@@ -160,7 +160,8 @@ def main(argv) -> int:
     import torch.distributed as dist
     from smc_tpu_torch.parallel import initialize_multihost, particle_mesh
     initialize_multihost(num_processes=world, process_id=rank,
-                         backend="gloo", store=dist.FileStore(store, world),
+                         backend="gloo", device="cpu",
+                         store=dist.FileStore(store, world),
                          timeout=PG_TIMEOUT)
     mesh = particle_mesh()
     for name in cases:
