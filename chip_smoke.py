@@ -5,30 +5,35 @@ smc_tpu_torch.smc on the card, then the rest of smc()'s paths:
 
   (a) the linear fixture at the JAX package's bench.py configuration;
   (b) AS with the adaptive schedule;
-  (c) the linear fixture with Metropolis resampling;
+  (c) the linear fixture with Metropolis resampling, and the Metropolis
+      chain kernel against its plain version;
   (d) checkpoint and resume of the linear fixture, bitwise;
   (e) tempered update and bridge distribution from half the linear data;
   (f) Smets-Wouters at 4,096 particles (the reference's production model);
   (g) An-Schorfheide on two observables at 16,384 particles;
   (h) CAPM at five seeds;
   (i) the particle mesh: AS-16k under smc(mesh=particle_mesh()) on one
-      NCCL rank, on two gloo ranks sharing the card, and on one NCCL rank
-      per card where there are two or more;
-  (j) the fused recursion against the host loop: AS-16k, adaptive AS-16k and
-      the linear fixture again with fused=False at the same seeds (bit for
-      bit), SW and AS-2obs timed both ways, and the Jacobi eigh kernel
-      against torch.linalg.eigh at the mutation's block shapes.
+      NCCL rank (fused, and once on the host loop), on two gloo ranks
+      sharing the card (the host loop), and on one NCCL rank per card
+      where there are two or more (fused);
+  (j) the fused recursion against the host loop: AS-16k, adaptive AS-16k,
+      the linear fixture and (c)'s Metropolis run again with fused=False at
+      the same seeds (bit for bit), SW and AS-2obs timed both ways, and the
+      Jacobi eigh kernel against torch.linalg.eigh at the mutation's block
+      shapes.
 
-The main path and phases (a), (b), (e)-(h) run the fused recursion, smc()'s
-automatic choice at verbose="none": each stage a replay of one captured
-CUDA graph. (c) Metropolis and (i) the mesh run the host loop, by the same
-choice; (d) checkpoints, so it runs the host loop too.
+The main path and phases (a)-(c), (e)-(h) and the NCCL mesh run the fused
+recursion, smc()'s automatic choice at verbose="none": each stage a replay
+of one captured CUDA graph (under the mesh with its collectives). The gloo
+mesh on the card runs the host loop, by the same choice; (d) checkpoints,
+so it runs the host loop too.
 
     python3 chip_smoke.py                 # all phases
     python3 chip_smoke.py --profile DIR   # also profile AS, adaptive AS,
                                           # the linear fixture and SW
     python3 chip_smoke.py --mesh-only     # the build, the AS main path and
-                                          # phase (i) alone
+                                          # phase (i) alone (i.3 on every
+                                          # card: --chips 4)
 
 Needs one CUDA card and nvcc (the kernels are built from csrc/ at first
 use, one nvcc per source, all at once). Every phase raises on failure and
@@ -95,9 +100,8 @@ CAPM_TRUE = (0.1, 0.8, 0.5, 0.2, 1.0, 0.5, 0.3, 1.2, 0.5)
 BAND_NATS, BAND_RTOL = 50.0, 1e-10
 TAIL_NATS, TAIL_RTOL = 1e6, 1e-7
 SW_TAIL_RTOL = 1e-3
-# (i) the particle mesh: one rank against the unsharded run, several ranks
-# against one rank, and how long the spawned ranks may take in all
-MESH_ONE_RANK_RTOL = 1e-12
+# (i) the particle mesh: several ranks against one rank, and how long the
+# spawned ranks may take in all
 MESH_RTOL = 1e-9
 MESH_TIMEOUT = 600         # seconds
 MESH_PG_TIMEOUT = 300      # seconds a collective waits for the other ranks
@@ -125,7 +129,8 @@ def ptxas_lines(log: str):
                           m.group(1))
             name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else
                     "eigh_kernel" if "eigh_kernel" in m.group(1) else
-                    m.group(1))
+                    "metropolis_kernel" if "metropolis_kernel" in m.group(1)
+                    else m.group(1))
         elif "spill stores" in line:
             frame = line.split(":", 1)[-1].strip()
         elif "Used" in line and "registers" in line and name:
@@ -197,6 +202,10 @@ def normwise_rel(a, b):
 # FMA pipes and HBM3 bandwidth
 PEAK_F64 = 33.5e12          # flop/s
 PEAK_BYTES = 3.35e12        # bytes/s
+# instructions issued: 4 schedulers per SM, one warp instruction (32
+# threads) each per clock, x 132 SMs x 1.98 GHz boost; the peak of a stream
+# of integer and f64 instructions that no one pipe limits
+PEAK_ISSUE = 132 * 4 * 32 * 1.98e9  # thread-instructions/s
 
 
 def gj_flops(n, w):
@@ -541,8 +550,9 @@ def _eigh_launch_gate(name, n_stages, n_blocks):
 
 
 def _reset_launches():
-    from smc_tpu_torch.ops import cuda_dsge, cuda_eigh
-    for counts in (cuda_dsge.LAUNCHES, cuda_eigh.LAUNCHES):
+    from smc_tpu_torch.ops import cuda_dsge, cuda_eigh, cuda_metropolis
+    for counts in (cuda_dsge.LAUNCHES, cuda_eigh.LAUNCHES,
+                   cuda_metropolis.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -669,15 +679,23 @@ def adaptive_phase(dev):
     return res, wall
 
 
+METROPOLIS_CONFIG = dict(LIN_CONFIG, resampling_method="metropolis")
+
+
 def metropolis_phase(dev, lin):
-    """(c) The linear fixture with Metropolis resampling."""
+    """(c) The linear fixture with Metropolis resampling, fused: its gates,
+    one chain launch per stage (the identity where a stage does not
+    resample), one host read for the chunk and one at the end. Returns the
+    run, its wall time and the chain's launches."""
     import smc_tpu_torch
     from smc_tpu_torch.models.linear import linear_parameters
+    from smc_tpu_torch.ops import cuda_metropolis
     data, _, ll, exact = lin
+    _reset_launches()
     res, wall = _timed(lambda: smc_tpu_torch.smc(
-        ll, linear_parameters(), data,
-        **dict(LIN_CONFIG, resampling_method="metropolis"), seed=0,
+        ll, linear_parameters(), data, **METROPOLIS_CONFIG, seed=0,
         device=dev))
+    launches = cuda_metropolis.LAUNCHES["metropolis"]
     n_stages = len(res.cloud.tempering_schedule) - 1
     _linear_gates("(c) metropolis", res, exact, band=False)
     capped = [b for b in res.chain_lengths if b > 10_000]
@@ -685,7 +703,140 @@ def metropolis_phase(dev, lin):
           f"{len(res.chain_lengths)} resample stages {res.chain_lengths}; "
           f"the 10,000 cap bound on {len(capped)}; wall {wall:.4f} s "
           f"({1e3 * wall / n_stages:.4f} ms/stage), host reads per stage "
-          f"{res.host_reads / n_stages:.4f}")
+          f"{res.host_reads / n_stages:.4f} ({res.host_reads} for "
+          f"{n_stages} stages); chain launches {launches} (one per stage); "
+          f"{_loop_kind(res)}")
+    if not (res.fused and res.host_reads == 2):
+        raise RuntimeError(f"(c) fused {res.fused}, {res.host_reads} host "
+                           "reads: not one for the chunk and one at the end")
+    if launches != n_stages:
+        raise RuntimeError(f"(c) {launches} chain launches for {n_stages} "
+                           "stages: the stage did not run the chain kernel "
+                           "once per stage")
+    if len(res.chain_lengths) != res.cloud.resamples:
+        raise RuntimeError(f"(c) Doeblin lengths {res.chain_lengths} for "
+                           f"{res.cloud.resamples} resamples")
+    return res, wall, launches
+
+
+# the instructions a chain step needs (csrc/metropolis_chain.cuh), with
+# the parts of the Philox call that its slot and key fix (the round keys,
+# most of rounds 1-3) worked out once a slot: 16 32x32->64 multiplies and
+# 18 three-input XORs for the Philox call, a multiply for
+# the proposal, 2 shifts, a conversion and a multiply for the uniform, 2
+# for the gather's address and the gather, a multiply and a compare for
+# the accept test, 3 selects and the counter's add. No pipe limits them
+# before the issue rate does, with the shifts as IMAD.SHL: per SM per
+# clock the IMAD pipe takes 19 at 64, the ALU the other 24 integer ones
+# at 64, the f64 pipe 3 at 64 and the conversion 1 at 16, against 48
+# issued at 128 (tests/torch_chain_sass.py counts the kernel's own).
+CHAIN_INSNS_PER_STEP = 16 + 18 + 1 + 4 + 3 + 2 + 3 + 1
+
+
+def chain_bound(n, n_out, steps):
+    """The least time for a chain launch: steps x n_out steps of
+    CHAIN_INSNS_PER_STEP at PEAK_ISSUE, or the weights read once (8 n),
+    the ancestors written once (8 n_out) and the key, flag and length, at
+    the memory rate; the larger, and which."""
+    t_ops = steps * n_out * CHAIN_INSNS_PER_STEP / PEAK_ISSUE * 1e3
+    t_bytes = (8 * n + 8 * n_out + 16 + 1 + 8) / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _stage_weights(res):
+    """The weights the first resampling stage of a run resampled: its
+    normalized weights, W_{s-1} w_s scaled to sum to N (a resample stage's
+    own W column is all ones)."""
+    import numpy as np
+    import torch
+    s = next(s for s in range(1, res.W.shape[1])
+             if np.all(res.W[:, s] == 1.0))
+    w = res.W[:, s - 1] * res.w[:, s]
+    return s, torch.as_tensor(w.shape[0] * w / w.sum())
+
+
+def chain_phase(dev, runs, launches):
+    """The Metropolis chain kernel against its plain version on the card,
+    bit for bit: at the weights of a resample stage of each run in `runs`
+    [(name, result)], n_out != n, a single non-zero weight, zero and NaN
+    weights (0 steps: the identity), a stage that does not resample and a
+    capped chain. Times at each run's stage (kernel back to back and from
+    a CUDA graph, plain) against the bound. Returns the kernels-line entry
+    at the first run's stage, with `launches` from phase (c)."""
+    import torch
+    from smc_tpu_torch.ops import cuda_metropolis as cm
+    from smc_tpu_torch.ops.resample import chain_steps
+    print(f"# (c) chain kernel: {smi_line()}")
+    key = torch.tensor([0x243F6A88, 0x85A308D3], dtype=torch.int64,
+                       device=dev)
+    yes = torch.ones((), dtype=torch.bool, device=dev)
+
+    def check(name, w, n_out=None, cap=10_000, flag=yes):
+        steps, doeblin = chain_steps(w, 0.01, cap)
+        got = cm.metropolis_chain(w, key, steps, flag, n_out)
+        want = cm.metropolis_chain_plain(w, key, steps, flag, n_out)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        print(f"# (c) chain {name}: n {w.shape[0]}, n_out {got.shape[0]}, "
+              f"{int(steps) if bool(flag) else 0} steps (Doeblin "
+              f"{float(doeblin):.0f}), bit for bit equal to the plain "
+              f"version: {same}")
+        if not same:
+            raise RuntimeError(f"(c) chain kernel differs from its plain "
+                               f"version: {name}")
+        return steps, got
+
+    entry = w_stage = None
+    for name, res in runs:
+        s, w = _stage_weights(res)
+        w = w.to(dev)
+        if not bool(torch.isfinite(w).all()):
+            raise RuntimeError(f"(c) chain: {name} stage {s}'s weights are "
+                               "not finite")
+        steps, _ = check(f"{name} stage {s}", w)
+        n = w.shape[0]
+        run = lambda: cm.metropolis_chain(w, key, steps, yes)
+        ms, in_graph_ms = cuda_ms(run, 20), graph_ms(run, 20)
+        plain_ms = cuda_ms(lambda: cm.metropolis_chain_plain(w, key, steps,
+                                                             yes), 1, 3)
+        bound, by = chain_bound(n, n, int(steps))
+        print(f"# (c) chain {name} stage {s}: kernel {ms:.4f} ms "
+              f"({in_graph_ms:.4f} ms replayed from a CUDA graph), plain "
+              f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by}; "
+              f"{int(steps)} x {n} steps), "
+              f"{100 * bound / in_graph_ms:.1f}% of the bound (graph)")
+        if entry is None:
+            entry = dict(name="metropolis_chain", route="cuda",
+                         source="smc_tpu_torch/csrc/metropolis_kernel.cu",
+                         replaces="smc_tpu/ops/resample.py:150",
+                         launches=launches, max_abs_err=0.0, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         library_ms=None)
+            w_stage = w
+    n = w_stage.shape[0]
+    check("n_out = n / 2 + 3", w_stage, n_out=n // 2 + 3)
+    check("n_out = 2 n", w_stage[:n // 4], n_out=n // 2)
+    spike = torch.zeros(256, dtype=torch.float64, device=dev)
+    spike[17] = 1.0
+    _, got = check("one non-zero weight", spike)
+    if (got == 17).float().mean() < 0.98:
+        raise RuntimeError("(c) chain: the slots did not reach the one "
+                           "non-zero weight")
+    ident = torch.arange(n, device=dev)
+    for name, w, flag in (
+            ("zero weights", torch.zeros_like(w_stage), yes),
+            ("NaN weights", torch.full_like(w_stage, float("nan")), yes),
+            ("no resample", w_stage, ~yes)):
+        _, got = check(name, w, flag=flag)
+        if not torch.equal(got, ident):
+            raise RuntimeError(f"(c) chain: {name} did not give the "
+                               "identity")
+    capped = torch.ones(4096, dtype=torch.float64, device=dev)
+    capped[5] = 1e6
+    steps, _ = check("4,095 ones and 1e6", capped)
+    if int(steps) != 10_000:
+        raise RuntimeError("(c) chain: the 10,000 cap did not bind")
+    return entry
 
 
 def _same_run(a, b) -> bool:
@@ -970,13 +1121,15 @@ def _mesh_result(res, launches, wall) -> dict:
                 launches_re=launches["re"],
                 launches_kalman=launches["kalman"], wall=wall,
                 collectives=res.collectives, bytes=res.collective_bytes,
-                host_reads=res.host_reads)
+                host_reads=res.host_reads, fused=res.fused,
+                capture_seconds=res.capture_seconds)
 
 
 def _mesh_rank(rank, world, backend, device, store, out):
     """One rank of a spawned mesh: a 2-stage warm-up under the mesh, then
-    AS-16k at AS_CONFIG, seed 0, with the launches counted from 0; the
-    result goes to OUT/rank<rank>.npz."""
+    AS-16k at AS_CONFIG, seed 0, with the launches counted from 0, and
+    under NCCL (fused) adaptive AS-16k too, whose replays must be the same
+    on every rank; the result goes to OUT/rank<rank>.npz."""
     import datetime
     sys.path.insert(0, HERE)
     import numpy as np
@@ -999,8 +1152,18 @@ def _mesh_rank(rank, world, backend, device, store, out):
         res = run(seed=0, mesh=mesh)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
+        launches = dict(cuda_dsge.LAUNCHES)
+        adaptive = {}
+        if backend == "nccl":
+            ad = run(seed=0, mesh=mesh, **ADAPTIVE)
+            adaptive = dict(
+                adaptive_stages=len(ad.cloud.tempering_schedule) - 1,
+                adaptive_masked=ad.masked_stages,
+                adaptive_collectives=ad.collectives,
+                adaptive_log_mdd=ad.log_mdd,
+                adaptive_params=ad.cloud.params.cpu().numpy())
         np.savez(os.path.join(out, f"rank{rank}.npz"), **_mesh_result(
-            res, dict(cuda_dsge.LAUNCHES), wall))
+            res, launches, wall), **adaptive)
     finally:
         dist.destroy_process_group()
 
@@ -1034,16 +1197,17 @@ def _spawn_mesh(world, backend, device):
                 for r in range(world)], wall
 
 
-def _mesh_gates(name, ranks, ref_mdd, n_parts):
+def _mesh_gates(name, ranks, ref_mdd, n_parts, fused):
     """Every rank bitwise equal to rank 0, log-MDD within MESH_RTOL of
     `ref_mdd` and MDD_TOL of the JAX package's, posterior means within 4
-    sd, each rank's launches 1 + rounds + stages; prints the wall times and
-    the collectives."""
+    sd, each rank's launches 1 + rounds + stages, the driver smc() chose
+    (`fused`) on every rank; prints the wall times, the collectives and the
+    host reads."""
     import numpy as np
     from smc_tpu_torch.models import as_dsge
     r0 = ranks[0]
     same = all(np.array_equal(r0[k], r[k]) for r in ranks[1:] for k in r0
-               if k != "wall")
+               if k not in ("wall", "capture_seconds"))
     n_stages = len(r0["schedule"]) - 1
     expected = 1 + int(r0["init_rounds"]) + n_stages
     launches = [(int(r["launches_re"]), int(r["launches_kalman"]))
@@ -1057,13 +1221,25 @@ def _mesh_gates(name, ranks, ref_mdd, n_parts):
           f"max |z| {z.max():.3f}; launches per rank (re, kalman) "
           f"{launches} (expected {expected} each)")
     walls = ", ".join(f"{float(r['wall']):.4f}" for r in ranks)
+    captures = [f"{float(r['capture_seconds']):.4f}" for r in ranks]
     print(f"# {name} wall per rank {walls} s ({n_stages} stages); "
           f"collectives {int(r0['collectives'])} "
           f"({(int(r0['collectives']) - 2) / n_stages:.4f} per stage, "
           f"plus the initial and final gathers), bytes from the other ranks "
           f"{int(r0['bytes'])} ({int(r0['bytes']) / n_stages:.1f} per stage, "
           f"the two gathers included); host reads per stage "
-          f"{float(r0['host_reads']) / n_stages:.4f}")
+          f"{float(r0['host_reads']) / n_stages:.4f}; "
+          f"{'fused' if bool(r0['fused']) else 'host loop'} (capture "
+          f"{', '.join(captures)} s)")
+    if "adaptive_stages" in r0:
+        print(f"# {name} adaptive: {int(r0['adaptive_stages'])} stages, "
+              f"masked stages per rank "
+              f"{[int(r['adaptive_masked']) for r in ranks]}, collectives "
+              f"per rank {[int(r['adaptive_collectives']) for r in ranks]}, "
+              f"log-MDD {float(r0['adaptive_log_mdd']):.4f}")
+    if any(bool(r["fused"]) != fused for r in ranks):
+        raise RuntimeError(f"{name}: smc() did not choose the "
+                           f"{'fused recursion' if fused else 'host loop'}")
     if not same:
         raise RuntimeError(f"{name}: the ranks' results differ")
     if not (rel <= MESH_RTOL
@@ -1076,11 +1252,14 @@ def _mesh_gates(name, ranks, ref_mdd, n_parts):
                            "once per likelihood call")
 
 
-def mesh_phase(dev, res_as):
+def mesh_phase(dev, res_as, wall_as):
     """(i) AS-16k under smc(mesh=particle_mesh()): (i.1) one NCCL rank in
-    this process against the unsharded run of the main path; (i.2) two
-    gloo ranks sharing the card (NCCL takes one rank per card), spawned;
-    (i.3) one NCCL rank per card, where there are two or more."""
+    this process, fused (the collectives captured in the graph), against
+    the unsharded fused run of the main path, bit for bit, and once on the
+    host loop, bit for bit against the fused mesh run; (i.2) two gloo ranks
+    sharing the card (NCCL takes one rank per card), spawned, on the host
+    loop (smc()'s choice: gloo cannot be captured); (i.3) one NCCL rank per
+    card, fused, where there are two or more."""
     import tempfile
     import numpy as np
     import torch
@@ -1094,50 +1273,68 @@ def mesh_phase(dev, res_as):
                              device=dev, store=dist.FileStore(
                                  os.path.join(tmp, "store"), 1))
         try:
+            mesh = particle_mesh()
+            run(n_phi=3, seed=1, mesh=mesh)     # warm-up, as the main path's
             _reset_launches()
-            res, wall = _timed(lambda: run(seed=0, mesh=particle_mesh()))
+            res, wall = _timed(lambda: run(seed=0, mesh=mesh))
             launches = dict(cuda_dsge.LAUNCHES)
+            host, wall_host = _timed(lambda: run(seed=0, mesh=mesh,
+                                                 fused=False))
         finally:
             dist.destroy_process_group()
     n_stages = len(res.cloud.tempering_schedule) - 1
     expected = 1 + res.init_rounds + n_stages
-    ll, ll_ref = res.cloud.loglh.cpu().numpy(), \
-        res_as.cloud.loglh.cpu().numpy()
-    bitwise = (res.log_mdd == res_as.log_mdd and np.array_equal(ll, ll_ref)
-               and torch.equal(res.cloud.params, res_as.cloud.params))
-    rel = abs(res.log_mdd - res_as.log_mdd) / abs(res_as.log_mdd)
-    fin = np.isfinite(ll_ref)
-    ll_rel = float(np.max(np.abs(ll[fin] - ll_ref[fin]) / np.abs(ll_ref[fin])))
-    print(f"# (i.1) one NCCL rank: log-MDD {res.log_mdd:.10f} (unsharded "
-          f"{res_as.log_mdd:.10f}, rel. diff {rel:.3e}); final loglh max rel "
-          f"diff {ll_rel:.3e}; bitwise equal to the unsharded run: {bitwise}; "
-          f"launches {launches} (expected {expected} each)")
+    bitwise = _equal_runs(res, res_as)
+    host_bitwise = _equal_runs(host, res)
+    print(f"# (i.1) one NCCL rank, fused: log-MDD {res.log_mdd:.10f} "
+          f"(unsharded {res_as.log_mdd:.10f}); bit for bit equal to the "
+          f"unsharded fused run: {bitwise}; launches {launches} (expected "
+          f"{expected} each)")
     print(f"# (i.1) wall {wall:.4f} s ({n_stages} stages, "
-          f"{1e3 * wall / n_stages:.4f} ms/stage); collectives "
-          f"{res.collectives} ({(res.collectives - 2) / n_stages:.4f} per "
-          f"stage), bytes from other ranks {res.collective_bytes}")
-    if not (rel <= MESH_ONE_RANK_RTOL and ll_rel <= MESH_ONE_RANK_RTOL
-            and np.array_equal(np.isfinite(ll), fin)):
-        raise RuntimeError("(i.1) the one-rank mesh run differs from the "
-                           "unsharded run")
+          f"{1e3 * wall / n_stages:.4f} ms/stage; the unsharded run "
+          f"{1e3 * wall_as / n_stages:.4f}); collectives {res.collectives} "
+          f"({(res.collectives - 2) / n_stages:.4f} per stage), bytes from "
+          f"other ranks {res.collective_bytes}; host reads per stage "
+          f"{res.host_reads / n_stages:.4f}; {_loop_kind(res)}")
+    print(f"# (i.1) one NCCL rank, host loop: wall {wall_host:.4f} s "
+          f"({1e3 * wall_host / n_stages:.4f} ms/stage), host reads per "
+          f"stage {host.host_reads / n_stages:.4f}, collectives "
+          f"{host.collectives}; bit for bit equal to the fused mesh run: "
+          f"{host_bitwise}")
+    if not (res.fused and not host.fused):
+        raise RuntimeError("(i.1) the NCCL mesh did not run fused, or the "
+                           "host loop did not run as asked")
+    if not bitwise:
+        raise RuntimeError("(i.1) the one-rank fused mesh run differs from "
+                           "the unsharded fused run")
+    if not host_bitwise:
+        raise RuntimeError("(i.1) the host-loop mesh run differs from the "
+                           "fused mesh run")
     if any(v != expected for v in launches.values()):
         raise RuntimeError("(i.1) the mesh run did not go through the "
                            "kernels once per likelihood call")
+    if res.collectives != host.collectives or res.host_reads != 2:
+        raise RuntimeError(f"(i.1) collectives {res.collectives} (host loop "
+                           f"{host.collectives}), {res.host_reads} host "
+                           "reads")
 
-    ranks, wall = _spawn_mesh(2, "gloo", f"cuda:{dev.index}")
-    print(f"# (i.2) two gloo ranks on {dev}: {wall:.4f} s for the spawn, "
+    ranks, wall2 = _spawn_mesh(2, "gloo", f"cuda:{dev.index}")
+    print(f"# (i.2) two gloo ranks on {dev}: {wall2:.4f} s for the spawn, "
           "the warm-up and the run")
-    _mesh_gates("(i.2) gloo, one card", ranks, res.log_mdd, AS_N_PARTS)
+    _mesh_gates("(i.2) gloo, one card", ranks, res.log_mdd, AS_N_PARTS,
+                fused=False)
 
     n_cards = torch.cuda.device_count()
     if n_cards < 2:
         print(f"# mesh nccl multi-card: not run, {n_cards} card")
         return
     world = 1 << (n_cards.bit_length() - 1)     # R must divide 2^14
-    ranks, wall = _spawn_mesh(world, "nccl", "cuda:{rank}")
-    print(f"# (i.3) {world} NCCL ranks, one per card: {wall:.4f} s for the "
-          "spawn, the warm-up and the run")
-    _mesh_gates(f"(i.3) nccl, {world} cards", ranks, res.log_mdd, AS_N_PARTS)
+    ranks, wall3 = _spawn_mesh(world, "nccl", "cuda:{rank}")
+    print(f"# (i.3) {world} NCCL ranks, one per card: {wall3:.4f} s for the "
+          "spawn, the warm-up and the run; the run itself per rank against "
+          f"(i.1)'s {wall:.4f} s on one rank")
+    _mesh_gates(f"(i.3) nccl, {world} cards", ranks, res.log_mdd, AS_N_PARTS,
+                fused=True)
 
 # (j) SW is timed both ways on a cut run (20 stages of the n_phi=100
 # schedule's spacing would change the run; n_phi=21 keeps its configuration
@@ -1176,9 +1373,10 @@ def _both_line(name, fused, f_wall, host, h_wall):
 
 
 def fused_phase(dev, res_as, wall_as, res_a, wall_a, res_b, wall_b, lin,
-                res_g, wall_g):
-    """(j) The host loop (fused=False) at the seeds of the main path, (b)
-    and (a): each equal to its fused run bit for bit. AS-2obs against
+                res_g, wall_g, res_c, wall_c):
+    """(j) The host loop (fused=False) at the seeds of the main path, (b),
+    (a) and (c): each equal to its fused run bit for bit ((c) with the same
+    Doeblin lengths). AS-2obs against
     (g)'s fused run, and SW on a cut run both ways, timed (equality
     printed, not gated). Returns SW's cut cloud for the eigh shapes."""
     import smc_tpu_torch
@@ -1198,6 +1396,12 @@ def fused_phase(dev, res_as, wall_as, res_a, wall_a, res_b, wall_b, lin,
         fused=False))
     gated.append(("linear-32k", _both_line("linear-32k", res_a, wall_a, host,
                                            wall)))
+    host, wall = _timed(lambda: smc_tpu_torch.smc(
+        ll, linear_parameters(), data, **METROPOLIS_CONFIG, seed=0,
+        device=dev, fused=False))
+    gated.append(("Metropolis linear-32k", _both_line(
+        "Metropolis linear-32k", res_c, wall_c, host, wall)
+        and res_c.chain_lengths == host.chain_lengths))
     model2, data2 = as_dsge.an_schorfheide_2obs(), as_dsge.load_as_data()[:2]
     host, wall = _timed(lambda: smc_tpu_torch.smc(
         model2.loglike_batched, as_dsge.an_schorfheide_parameters(), data2,
@@ -1442,8 +1646,8 @@ def main(argv=None) -> int:
             print(f"# ptxas {line}")
 
     if args.mesh_only:
-        _, res_as, _ = main_path(dev)
-        mesh_phase(dev, res_as)
+        _, res_as, wall_as = main_path(dev)
+        mesh_phase(dev, res_as, wall_as)
         print(f"# all phases {time.perf_counter() - t_start:.1f} s (build "
               "included)")
         print(json.dumps(_device_line()))
@@ -1462,7 +1666,9 @@ def main(argv=None) -> int:
         profile_path(args.profile, "linear32k", lambda: smc_tpu_torch.smc(
             lin[2], linear_parameters(), lin[0], **LIN_CONFIG, seed=0,
             device=dev))
-    metropolis_phase(dev, lin)
+    res_c, wall_c, chain_launches = metropolis_phase(dev, lin)
+    chain = chain_phase(dev, [("linear-32k", res_c), ("AS-16k", res_as)],
+                        chain_launches)
     checkpoint_phase(dev, lin, res_a)
     tempered_phase(dev, lin)
     sw_phase(dev)
@@ -1471,15 +1677,16 @@ def main(argv=None) -> int:
         profile_path(args.profile, "sw4k", lambda: run_sw(seed=0, n_phi=2))
     res_g, wall_g = as2obs_phase(dev)
     capm_phase(dev)
-    mesh_phase(dev, res_as)
+    mesh_phase(dev, res_as, wall_as)
     res_sw = fused_phase(dev, res_as, wall_as, res_a, wall_a, res_b, wall_b,
-                         lin, res_g, wall_g)
+                         lin, res_g, wall_g, res_c, wall_c)
     kernels.append(eigh_phase(dev, [
         ("AS-16k", res_as.cloud, res_as.space, AS_CONFIG["n_blocks"]),
         ("linear-32k", res_a.cloud, res_a.space, LIN_CONFIG["n_blocks"]),
         ("SW-4k", res_sw.cloud, res_sw.space, SW_CONFIG["n_blocks"])]))
     for k, key in zip(kernels, ("re", "kalman", "eigh")):
         k["launches"] = launches[key]
+    kernels.append(chain)
     print(f"# all phases {time.perf_counter() - t_start:.1f} s (build "
           "included)")
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,8 @@
 
 Each CUDA source is compiled by nvcc for sm_90a (Hopper) into a plain-C
 shared library that its wrapper loads with ctypes: dsge_kernels.cu for
-ops/cuda_dsge.py, eigh_kernel.cu for ops/cuda_eigh.py. No PyTorch headers
+ops/cuda_dsge.py, eigh_kernel.cu for ops/cuda_eigh.py, metropolis_kernel.cu
+for ops/cuda_metropolis.py. No PyTorch headers
 are involved, so a build takes seconds; `build_cuda_libraries` runs one
 nvcc per source, all at once. It happens at first use, into
 smc_tpu_torch/_build/, under a name keyed by a hash of the sources and flags
@@ -12,8 +13,10 @@ compiler's output (for nvcc, ptxas registers and spills) is kept beside the
 library as <library>.log.
 
 `build_cpu_library` compiles csrc/dsge_cpu.cpp (the per-particle bodies as
-plain host loops) and `build_eigh_cpu_library` csrc/eigh_cpu.cpp (the
-Jacobi body, block by block) with g++. Only the tests use them.
+plain host loops), `build_eigh_cpu_library` csrc/eigh_cpu.cpp (the Jacobi
+body, block by block) and `build_metropolis_cpu_library`
+csrc/metropolis_cpu.cpp (the chain, slot by slot) with g++. Only the tests
+use them.
 
 A missing compiler or a failed build raises RuntimeError with the
 compiler's output; nothing here returns None.
@@ -85,11 +88,13 @@ def _compile(compiler, flags, source: Path, stem: str) -> Path:
 
 # CUDA sources and the stems of their libraries
 CUDA_SOURCES = {"dsge": ("dsge_kernels.cu", "libsmc_dsge_cuda"),
-                "eigh": ("eigh_kernel.cu", "libsmc_eigh_cuda")}
+                "eigh": ("eigh_kernel.cu", "libsmc_eigh_cuda"),
+                "metropolis": ("metropolis_kernel.cu",
+                               "libsmc_metropolis_cuda")}
 
 
 def build_cuda_library(name: str = "dsge") -> Path:
-    """Path of one sm_90a kernel library ("dsge" or "eigh"), built if
+    """Path of one sm_90a kernel library (a key of CUDA_SOURCES), built if
     missing."""
     source, stem = CUDA_SOURCES[name]
     return _compile(find_nvcc(), NVCC_FLAGS, CSRC / source, stem)
@@ -122,3 +127,9 @@ def build_eigh_cpu_library() -> Path:
     """Path of the host build of the Jacobi eigh body (tests only)."""
     return _compile(_gxx(), GXX_FLAGS, CSRC / "eigh_cpu.cpp",
                     "libsmc_eigh_cpu")
+
+
+def build_metropolis_cpu_library() -> Path:
+    """Path of the host build of the Metropolis chain (tests only)."""
+    return _compile(_gxx(), GXX_FLAGS, CSRC / "metropolis_cpu.cpp",
+                    "libsmc_metropolis_cpu")

@@ -22,6 +22,11 @@ likelihood and the proposal (nothing, where those are elementwise). NCCL
 carries CUDA tensors between cards; gloo carries CPU tensors, and CUDA
 tensors through host memory (several ranks sharing a card, which NCCL
 refuses).
+
+A gather packs its tensors into one send buffer and receives into one
+preallocated [R n, cols] tensor, reading nothing to the host, so smc()'s
+fused recursion captures it in its CUDA graph under NCCL (a gloo gather of
+CUDA tensors goes through the host and cannot be captured).
 """
 
 from __future__ import annotations
@@ -110,17 +115,39 @@ def particle_mesh(devices=None):
                             mesh_dim_names=(PARTICLE_AXIS,))
 
 
+def mesh_backend(mesh) -> str:
+    """The torch.distributed backend ("nccl", "gloo") of a particle
+    mesh's group."""
+    return dist.get_backend(mesh.get_group(PARTICLE_AXIS))
+
+
+# the one-tensor all-gather: all_gather_single where torch has it (it
+# deprecates all_gather_into_tensor; torch 2.11 has only the latter)
+_all_gather_single = getattr(dist, "all_gather_single",
+                             dist.all_gather_into_tensor)
+
+
 @dataclasses.dataclass
 class ParticleSharding:
     """This rank's place on the mesh (`rank` of `world`, communicating over
-    `group`) and the collectives a run makes, counted: `collectives` calls
-    and `bytes` received from the other ranks."""
+    `group`) and the collectives a run makes, counted in `counts`:
+    `collectives` calls and `bytes` received from the other ranks. A
+    fused run's CUDA graph issues its collectives once per replay, and the
+    fused recursion adds them to `counts` per replay."""
 
     rank: int
     world: int
     group: object
-    collectives: int = 0
-    bytes: int = 0
+    counts: dict = dataclasses.field(
+        default_factory=lambda: {"collectives": 0, "bytes": 0})
+
+    @property
+    def collectives(self) -> int:
+        return self.counts["collectives"]
+
+    @property
+    def bytes(self) -> int:
+        return self.counts["bytes"]
 
     def rows(self, n_parts: int) -> slice:
         """This rank's particle rows of a cloud of `n_parts`."""
@@ -132,16 +159,17 @@ class ParticleSharding:
 
     def gather(self, *xs: torch.Tensor):
         """The all-gather along the particle axis: f64 tensors [N/R, ...]
-        of this rank -> [N, ...], in one collective. One tensor in, one out;
+        of this rank -> [N, ...], in one collective (one packed send buffer
+        into one preallocated [N, cols] output). One tensor in, one out;
         several in, a tuple out."""
         n = xs[0].shape[0]
         flat = [x.reshape(n, -1) for x in xs]
         send = (flat[0] if len(flat) == 1 else torch.cat(flat, 1)).contiguous()
-        parts = [torch.empty_like(send) for _ in range(self.world)]
-        dist.all_gather(parts, send, group=self.group)
-        full = torch.cat(parts)
-        self.collectives += 1
-        self.bytes += (self.world - 1) * send.numel() * send.element_size()
+        full = send.new_empty((self.world * n, send.shape[1]))
+        _all_gather_single(full, send, group=self.group)
+        self.counts["collectives"] += 1
+        self.counts["bytes"] += ((self.world - 1) * send.numel()
+                                 * send.element_size())
         out, col = [], 0
         for x, f in zip(xs, flat):
             out.append(full[:, col:col + f.shape[1]].reshape(
@@ -162,7 +190,7 @@ class ParticleSharding:
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)
-        self.collectives += 1
+        self.counts["collectives"] += 1
 
 
 def _replace_arrays(cloud: Cloud, arrays) -> Cloud:

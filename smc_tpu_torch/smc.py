@@ -7,9 +7,9 @@ One stage function serves both loops (`make_recursion_step`): it maps the
 carried state, a dict of device tensors, to the next one. The resample
 decision is a device select (the JAX package's `lax.cond`), the adaptive
 schedule's solver runs on the device, the step size c is updated there, and
-the proposal's eigendecomposition is ops/cuda_eigh.py's, so a stage makes no
-host read and copies nothing from the host (a Metropolis resample excepted:
-its chain length is read).
+the proposal's eigendecomposition is ops/cuda_eigh.py's and a Metropolis
+resample's chain is ops/cuda_metropolis.py's (its length computed on the
+device), so a stage makes no host read and copies nothing from the host.
 
 * The fused recursion (`FusedRecursion`, `fused=True`, the default where
   it applies) keeps the state in static device buffers and the per-stage
@@ -19,12 +19,15 @@ its chain length is read).
   The host reads once per chunk of stages and once at the end.
 * The host loop (`fused=False`) calls the same stage function and reads its
   scalars once per stage (phi, ESS, the log-MDD increment, the resample
-  flag, c, the acceptance, j and phi_prop, in one read), as the JAX
-  package's host loop does.
+  flag, c, the acceptance, j, phi_prop and the Doeblin length, in one
+  read), as the JAX package's host loop does.
 
-Under a particle mesh (`mesh=`, parallel/mesh.py, host loop only) each stage
-adds two collectives: the all-gather of the cloud's rows before the
-correction and the all-gather of the acceptance after the mutation.
+Under a particle mesh (`mesh=`, parallel/mesh.py) each stage adds two
+collectives: the all-gather of the cloud's rows before the correction and
+the all-gather of the acceptance after the mutation. The fused recursion
+captures them with the stage (NCCL); every rank issues the same number of
+stages, because its stop rule waits on the done flag of a fixed stage and
+never polls.
 """
 
 from __future__ import annotations
@@ -46,12 +49,12 @@ from smc_tpu_torch.cloud import (Cloud, ARRAY_FIELDS, weighted_mean,
                                  weighted_cov, weighted_std)
 from smc_tpu_torch.params import ParamSpace
 from smc_tpu_torch.rng import TorchDraws, ParticleDraws, ReplayDraws
-from smc_tpu_torch.ops import cuda_dsge, cuda_eigh
+from smc_tpu_torch.ops import cuda_dsge, cuda_eigh, cuda_metropolis
 from smc_tpu_torch.ops.correction import correct
 from smc_tpu_torch.ops.schedule import fixed_schedule, solve_adaptive_phi
 from smc_tpu_torch.ops.resample import (resample as resample_indices,
-                                        metropolis_chain_length,
-                                        VALID_METHODS)
+                                        metropolis_adaptive, warn_if_capped,
+                                        N_ITER_MAX, VALID_METHODS)
 from smc_tpu_torch.ops.mutation import block_sizes, make_mutation_step
 from smc_tpu_torch.ops.initialization import (initial_draw,
                                               initialize_likelihoods)
@@ -63,12 +66,13 @@ _F64 = torch.float64
 LOOKAHEAD = 4
 
 # the carried state of the recursion (make_recursion_step), and the
-# per-stage scalars a fused chunk traces, in the order of its [chunk, 6]
+# per-stage scalars a fused chunk traces, in the order of its [chunk, 7]
 # trace buffer
 STATE_KEYS = ("params", "loglh", "logprior", "old_loglh", "weights", "accept",
               "c", "accept_rate", "phi", "ess_prev", "j", "phi_prop",
               "resampled_last", "s", "log_mdd", "resamples", "nan_ess")
-TRACE_KEYS = ("phi", "ess", "c", "accept", "mdd_inc", "resampled")
+TRACE_KEYS = ("phi", "ess", "c", "accept", "mdd_inc", "resampled",
+              "doeblin")
 
 
 @dataclasses.dataclass
@@ -77,12 +81,12 @@ class SMCResult:
     normalized (W) weight matrices [N, n_stages+1] as numpy, the log marginal
     data density, the redraw rounds of the initialization, which stage loop
     ran (`fused`), the blocking reads of stage scalars the stage loop made (one
-    per stage in the host loop; one per chunk and one at the end when
-    fused), the masked stages a fused adaptive run replayed past its end,
-    the seconds a fused run spent capturing its CUDA graph, the Doeblin
-    length (before the cap) of each Metropolis resample, and under a
-    particle mesh the collectives the run made and the bytes they brought
-    this rank from the others."""
+    per stage in the host loop, whatever the resampler; one per chunk and
+    one at the end when fused), the masked stages a fused adaptive run
+    replayed past its end, the seconds a fused run spent capturing its
+    CUDA graph, the Doeblin length (before the cap) of each Metropolis
+    resample, and under a particle mesh the collectives the run made and
+    the bytes they brought this rank from the others."""
 
     cloud: Cloud
     w: Optional[np.ndarray]
@@ -132,18 +136,18 @@ def make_stage_core(space, loglike_batched, n_blocks, n_mh_steps, alpha,
       stage(draws, params, loglh, logprior, old_loglh, weights,
             phi_n, phi_n1, c)
         -> (params, loglh, logprior, old_loglh, weights, accept,
-            inc_w, W_col, ess, did_resample, accept_mean, mdd_inc, info)
-    ess, did_resample, accept_mean and mdd_inc are device scalars. The
-    resample decision ESS < threshold is a device select, as the JAX
+            inc_w, W_col, ess, did_resample, accept_mean, mdd_inc, doeblin)
+    ess, did_resample, accept_mean, mdd_inc and doeblin are device scalars.
+    The resample decision ESS < threshold is a device select, as the JAX
     package's `lax.cond`: the resampling indices are computed on every
     stage and the gather takes them where the stage resamples, the identity
-    elsewhere. A stage whose ESS is NaN runs through on NaN weights (the
-    caller raises at its next read).
-    Draws, in order: the resampling draws (on every stage), the block
-    permutation, then the mutation's draws. A Metropolis resample is the
-    exception: the stage reads the decision to the host and draws its chain
-    (of the length it reads, put in info["chain_length"]) only when it
-    resamples; info["host_reads"] counts those reads.
+    elsewhere; a Metropolis chain reads the decision on the device and runs
+    no step where it is false. doeblin is a Metropolis resample's Doeblin
+    length (before the cap; 0 on a stage that does not resample, and for
+    the other resamplers). A stage whose ESS is NaN runs through on NaN
+    weights (the caller raises at its next read).
+    Draws, in order: the resampling draws (on every stage: for Metropolis
+    the chain's key), the block permutation, then the mutation's draws.
 
     Under a particle mesh (`sharding`) the stage takes the whole cloud (the
     rows every rank gathered) and returns this rank's rows of the particle
@@ -162,21 +166,15 @@ def make_stage_core(space, loglike_batched, n_blocks, n_mh_steps, alpha,
         dev = params.device
         rows = slice(None) if sharding is None else sharding.rows(n)
         do_resample = ess < threshold
-        info = {"host_reads": 0}
         if resampling_method == "metropolis":
-            info["host_reads"] = 1
-            if bool(do_resample):
-                n_iter, info["chain_length"] = metropolis_chain_length(norm_w)
-                info["host_reads"] += 1
-                idx = resample_indices(draws, norm_w, method="metropolis",
-                                       n_iter=n_iter)
-            else:
-                idx = torch.arange(n, device=dev)
+            idx, doeblin = metropolis_adaptive(draws, norm_w,
+                                               flag=do_resample)
         else:
             idx = torch.where(do_resample,
                               resample_indices(draws, norm_w,
                                                method=resampling_method),
                               torch.arange(n, device=dev))
+            doeblin = torch.zeros_like(ess)
         params, loglh = params.index_select(0, idx), loglh.index_select(0, idx)
         logprior = logprior.index_select(0, idx)
         old_loglh = old_loglh.index_select(0, idx)
@@ -193,7 +191,7 @@ def make_stage_core(space, loglike_batched, n_blocks, n_mh_steps, alpha,
         accept_all = accept if sharding is None else sharding.gather(accept)
         return (params, loglh, logprior, old_loglh, weights[rows], accept,
                 inc_w, weights, ess, do_resample, torch.mean(accept_all),
-                mdd_inc, info)
+                mdd_inc, doeblin)
 
     return stage
 
@@ -204,7 +202,7 @@ def make_recursion_step(stage, sched_dev, n_parts, use_fixed_schedule,
       step(draws, st) -> (st', extras)
     st holds STATE_KEYS as device tensors (the particle arrays are this
     rank's rows under a mesh); extras holds the stage's inc_w, W_col,
-    mdd_inc and the stage's `info`. phi_n is the fixed schedule's entry s or
+    mdd_inc and doeblin. phi_n is the fixed schedule's entry s or
     the adaptive solver's root, c is updated from the last acceptance, and
     the stage body runs; everything stays on the device."""
     n_phi = sched_dev.shape[0]
@@ -228,7 +226,7 @@ def make_recursion_step(stage, sched_dev, n_parts, use_fixed_schedule,
                 st["phi_prop"], ess_bar)
         c = _logistic_c_update(st["c"], st["accept_rate"], target)
         (params, loglh, logprior, old_loglh, weights, accept, inc_w, W_col,
-         ess, did, accept_mean, mdd_inc, info) = stage(
+         ess, did, accept_mean, mdd_inc, doeblin) = stage(
             draws, *arrays, phi_n, phi_n1, c)
         new = dict(params=params, loglh=loglh, logprior=logprior,
                    old_loglh=old_loglh, weights=weights, accept=accept, c=c,
@@ -238,7 +236,7 @@ def make_recursion_step(stage, sched_dev, n_parts, use_fixed_schedule,
                    resamples=st["resamples"] + did.to(torch.int64),
                    nan_ess=torch.isnan(ess))
         return new, dict(inc_w=inc_w, W_col=W_col, mdd_inc=mdd_inc,
-                         info=info)
+                         doeblin=doeblin)
 
     return step
 
@@ -259,12 +257,12 @@ def _initial_state(cloud, device, c, phi, j, phi_prop, resampled_last,
 
 
 # the kernels' launch counters
-_COUNTERS = (cuda_dsge.LAUNCHES, cuda_eigh.LAUNCHES)
+_COUNTERS = (cuda_dsge.LAUNCHES, cuda_eigh.LAUNCHES, cuda_metropolis.LAUNCHES)
 
 
-def _add_launches(counts, times=1):
-    """Add `times` x counts (one dict per entry of _COUNTERS)."""
-    for d, c in zip(_COUNTERS, counts):
+def _add_counts(counters, counts, times=1):
+    """Add `times` x counts to counters (dicts, entry by entry)."""
+    for d, c in zip(counters, counts):
         for k, v in c.items():
             d[k] += times * v
 
@@ -274,7 +272,7 @@ class FusedRecursion:
     package's `make_fused_recursion` (its `lax.while_loop` over stages).
 
     `buffers` hold STATE_KEYS plus the chunk's slot index `k` and the
-    `done` flag (phi has reached 1 or an ESS was NaN); `scalars` [chunk, 6]
+    `done` flag (phi has reached 1 or an ESS was NaN); `scalars` [chunk, 7]
     and, with `store_weight_matrices`, `w` and `W` [chunk, N] hold the
     traces. `run_stage()` runs one stage: the body masks it, so a stage
     after `done` leaves every buffer bit for bit as it was, and a stage
@@ -282,13 +280,18 @@ class FusedRecursion:
     runs the body eagerly, the second captures it as a CUDA graph (the
     run's generator registered with it, so each replay advances the
     generator as an eager stage does) and then replays it; every later call
-    replays. The kernels' launch counters count the graph's launches once
-    per replay and nothing for the capture. On the CPU every call runs the
-    body eagerly."""
+    replays. The kernels' launch counters, and `counters` (a mesh's
+    collective counts), count what the graph issues once per replay and
+    nothing for the capture. The capture is in "thread_local" mode: under
+    a mesh the NCCL process group's watchdog thread may query the events
+    of earlier collectives while the capture runs, and "global" mode would
+    hold such a call, from any thread, against the capture. On the CPU
+    every call runs the body eagerly."""
 
     def __init__(self, step, draws, state, chunk: int, n_parts: int,
-                 store_weight_matrices: bool):
+                 store_weight_matrices: bool, counters=()):
         dev = state["params"].device
+        self.counters = list(_COUNTERS) + list(counters)
         self.step, self.draws, self.device = step, draws, dev
         self.buffers = {k: v.clone() for k, v in state.items()}
         self.buffers["k"] = torch.zeros((), dtype=torch.int64, device=dev)
@@ -314,7 +317,7 @@ class FusedRecursion:
         slot = b["k"].reshape(1)
         row = torch.stack([new["phi"], new["ess_prev"], new["c"],
                            new["accept_rate"], ex["mdd_inc"],
-                           new["resampled_last"].to(_F64)])
+                           new["resampled_last"].to(_F64), ex["doeblin"]])
         self._write(self.scalars, slot, row, active)
         if self.w is not None:
             self._write(self.w, slot, ex["inc_w"], active)
@@ -335,23 +338,24 @@ class FusedRecursion:
         if self.graph is None:
             self._capture()
         self.graph.replay()
-        _add_launches(self._per_replay)
+        _add_counts(self.counters, self._per_replay)
 
     def _capture(self):
         """Capture the body on the current stream (a capture that fails
         raises; nothing reruns the stage eagerly)."""
         t0 = time.perf_counter()
-        before = [dict(d) for d in _COUNTERS]
+        before = [dict(d) for d in self.counters]
         graph = torch.cuda.CUDAGraph()
         gen = getattr(self.draws, "generator", None)
         if gen is not None:
             graph.register_generator_state(gen)
         with torch.cuda.graph(graph,
-                              stream=torch.cuda.current_stream(self.device)):
+                              stream=torch.cuda.current_stream(self.device),
+                              capture_error_mode="thread_local"):
             self.body()
         self._per_replay = [{k: v - b[k] for k, v in d.items()}
-                            for d, b in zip(_COUNTERS, before)]
-        _add_launches(self._per_replay, times=-1)
+                            for d, b in zip(self.counters, before)]
+        _add_counts(self.counters, self._per_replay, times=-1)
         self.graph = graph
         self.capture_seconds = time.perf_counter() - t0
 
@@ -372,16 +376,25 @@ class FusedRecursion:
 class _DoneWatch:
     """Which replays of an adaptive fused chunk the host has seen end
     unfinished. After each stage a non-blocking copy of the `done` flag
-    goes to pinned host memory and an event is recorded; the host waits on
-    the oldest event only when `lookahead` stages are in flight, so the
-    card always has work queued and at most `lookahead` stages run past the
-    end. On the CPU the flag is known at once."""
+    goes to pinned host memory and an event is recorded; once `lookahead`
+    stages are in flight the host waits on the event of stage
+    issued - lookahead and reads its flag, and reads no other, so the card
+    always has work queued and exactly `lookahead` stages run past the end
+    (fewer where the chunk ends first). When the host learns that the run
+    is done depends on the flags alone, never on the events' timing; under
+    a mesh the flags are the same on every rank, so every rank issues the
+    same number of replays (one more on a rank would wait in a collective
+    the others never join). On the CPU the flag is known at once. `event`
+    makes the events (torch.cuda.Event; tests pass a stand-in)."""
 
-    def __init__(self, device, size: int, lookahead: int = LOOKAHEAD):
-        self.cuda = device.type == "cuda"
+    def __init__(self, device, size: int, lookahead: int = LOOKAHEAD,
+                 event=None):
+        self.sync = device.type == "cuda" or event is not None
         self.lookahead = lookahead
-        self.flags = (torch.zeros(size, dtype=torch.bool).pin_memory()
-                      if self.cuda else None)
+        self.event = event or torch.cuda.Event
+        self.flags = torch.zeros(size, dtype=torch.bool)
+        if device.type == "cuda":
+            self.flags = self.flags.pin_memory()
         self.events = []
         self.seen = 0            # stages known to have ended unfinished
         self.done = False
@@ -389,20 +402,16 @@ class _DoneWatch:
     def after_stage(self, done_dev: torch.Tensor) -> bool:
         """Record stage len(events); True once the host knows the run is
         done (then issue no further stage)."""
-        if not self.cuda:
+        if not self.sync:
             self.done = bool(done_dev)
             return self.done
         r = len(self.events)
         self.flags[r].copy_(done_dev, non_blocking=True)
-        ev = torch.cuda.Event()
+        ev = self.event()
         ev.record()
         self.events.append(ev)
-        while not self.done and self.seen < len(self.events):
-            ev = self.events[self.seen]
-            if len(self.events) - self.seen > self.lookahead:
-                ev.synchronize()
-            elif not ev.query():
-                break
+        if len(self.events) - self.seen > self.lookahead:
+            self.events[self.seen].synchronize()
             self.done = bool(self.flags[self.seen])
             self.seen += 1
         return self.done
@@ -417,17 +426,18 @@ def _on_device(cloud: Cloud, device) -> Cloud:
         **{f: getattr(cloud, f).to(device) for f in ARRAY_FIELDS})
 
 
-def _fuse_limit(resampling_method, mesh, draws, device) -> Optional[str]:
-    """Why the port cannot fuse this run, or None."""
-    if resampling_method == "metropolis":
-        return ("resampling_method='metropolis' (its chain length is read "
-                "to the host; ROADMAP.md Queue A item 5)")
-    if mesh is not None:
-        return ("a particle mesh (its collectives are not captured; "
-                "ROADMAP.md Queue A item 6)")
+def _fuse_limit(mesh, draws, device) -> Optional[str]:
+    """Why the port cannot fuse this run, or None: what a CUDA graph cannot
+    capture."""
     if isinstance(draws, ReplayDraws) and device.type == "cuda":
         return ("ReplayDraws on a CUDA device (recorded host arrays cannot "
                 "be captured in a CUDA graph)")
+    if mesh is not None and device.type == "cuda":
+        from smc_tpu_torch.parallel.mesh import mesh_backend
+        if mesh_backend(mesh) == "gloo":
+            return ("a gloo particle mesh on a CUDA device (gloo carries "
+                    "CUDA tensors through host memory, which a CUDA graph "
+                    "cannot capture; use NCCL, one card per rank)")
     return None
 
 
@@ -506,9 +516,9 @@ def smc(loglikelihood: Callable,
         run_test, save_intermediate or continue_intermediate is set or
         verbose is "high"; fused=None chooses by that rule, fused=False
         takes the host loop. The port also runs the host loop, and
-        fused=True raises ValueError, for resampling_method="metropolis"
-        (its chain length is read to the host), under a `mesh` and for a
-        ReplayDraws `key` on a CUDA device. A chunk is n_phi stages,
+        fused=True raises ValueError, where a CUDA graph cannot capture the
+        stage: a ReplayDraws `key` on a CUDA device, and a gloo `mesh` on
+        a CUDA device. A chunk is n_phi stages,
         `fused_chunk_stages` when given, 25 at verbose "low" (the first 3).
         Both loops give the same bits. `SMCResult.fused` says which ran.
       * `continue_intermediate` resumes with the checkpoint's own phi_prop
@@ -534,7 +544,10 @@ def smc(loglikelihood: Callable,
         `particle_store_path`, the profile); a resume loads the checkpoint
         on every rank. The collectives are
         counted in `SMCResult.collectives` and `collective_bytes`, apart
-        from `host_reads`.
+        from `host_reads`. An NCCL mesh runs the fused recursion with its
+        collectives in the graph (every rank issues the same stages); a
+        gloo mesh runs it eagerly on CPU ranks and takes the host loop on
+        cards.
     Accepted for parity and unused: `parallel`, `data_vintage`,
     `old_vintage`, `smc_iteration`, `filestring_addl`,
     `intermediate_stage_start`. `testing=True` suppresses the final writes;
@@ -553,7 +566,7 @@ def smc(loglikelihood: Callable,
     draws = key if key is not None else TorchDraws(seed, device)
     can_fuse = (not run_test and not save_intermediate
                 and not continue_intermediate and verbose in ("none", "low"))
-    limit = _fuse_limit(resampling_method, mesh, draws, device)
+    limit = _fuse_limit(mesh, draws, device)
     use_fused = (can_fuse and limit is None) if fused is None else bool(fused)
     if use_fused and not can_fuse:
         raise ValueError(
@@ -726,8 +739,9 @@ def smc(loglikelihood: Callable,
             full = int(fused_chunk_stages or (min(25, n_phi)
                                               if verbose == "low" else n_phi))
             first = min(3, full) if verbose == "low" else full
-            fused_rec = FusedRecursion(step, draws, state, full, n_parts,
-                                       store_weight_matrices)
+            fused_rec = FusedRecursion(
+                step, draws, state, full, n_parts, store_weight_matrices,
+                counters=() if sharding is None else [sharding.counts])
             stream = (torch.cuda.Stream(device) if device.type == "cuda"
                       else None)
             with contextlib.ExitStack() as on_stream:
@@ -761,6 +775,9 @@ def smc(loglikelihood: Callable,
                     cloud.tempering_schedule += traces["phi"].tolist()
                     cloud.ESS += traces["ess"].tolist()
                     cloud.resamples += int(traces["resampled"].sum())
+                    if resampling_method == "metropolis":
+                        _chain_lengths(chain_lengths, traces["doeblin"],
+                                       traces["resampled"])
                     if store_weight_matrices:
                         w_cols.append(fused_rec.w[:n_in].clone())
                         W_cols.append(fused_rec.W[:n_in].clone())
@@ -778,9 +795,9 @@ def smc(loglikelihood: Callable,
                             if store_weight_matrices else (nan, nan))
                         for f in ("params", "loglh", "weights"):
                             setattr(cloud, f, fused_rec.buffers[f])
-                        diag.check_nan_ess(cloud, i, inc_last, W_last,
+                        diag.check_nan_ess(whole(cloud), i, inc_last, W_last,
                                            savepath or "smc_cloud.npz",
-                                           debug_assertion)
+                                           debug_assertion and root)
                     if done or remaining == 0:
                         break
                     size = full
@@ -804,13 +821,13 @@ def smc(loglikelihood: Callable,
                 cloud.stage_index = i
                 state, ex = step(draws, state)
                 (phi_n, ess, mdd_inc, did, cloud.c, cloud.accept_rate, j,
-                 phi_prop) = torch.stack([
+                 phi_prop, doeblin) = torch.stack([
                      state["phi"], state["ess_prev"], ex["mdd_inc"],
                      state["resampled_last"].to(_F64), state["c"],
                      state["accept_rate"], state["j"].to(_F64),
-                     state["phi_prop"]]).tolist()
+                     state["phi_prop"], ex["doeblin"]]).tolist()
                 j = int(j)
-                host_reads += 1 + ex["info"]["host_reads"]
+                host_reads += 1
                 for f in ("params", "loglh", "logprior", "old_loglh",
                           "weights", "accept"):
                     setattr(cloud, f, state[f])
@@ -823,8 +840,8 @@ def smc(loglikelihood: Callable,
                                        debug_assertion and root)
                 if did:
                     cloud.resamples += 1
-                    if "chain_length" in ex["info"]:
-                        chain_lengths.append(ex["info"]["chain_length"])
+                if resampling_method == "metropolis":
+                    _chain_lengths(chain_lengths, [doeblin], [did])
                 log_mdd += mdd_inc
                 if store_weight_matrices:
                     w_cols.append(ex["inc_w"])
@@ -882,6 +899,16 @@ def smc(loglikelihood: Callable,
                      sharding.collectives,
                      collective_bytes=0 if sharding is None else
                      sharding.bytes)
+
+
+def _chain_lengths(out: List[int], doeblin, resampled) -> None:
+    """Append the Doeblin lengths of the stages that resampled to `out`,
+    warning for each that passed the chain's cap (at the read that brings
+    them, in either driver)."""
+    for b, r in zip(doeblin, resampled):
+        if r:
+            warn_if_capped(float(b), N_ITER_MAX)
+            out.append(int(b))
 
 
 def _stack(cols: List[torch.Tensor], n_parts: int) -> np.ndarray:

@@ -187,7 +187,9 @@ def test_sw_likelihood_on_card_matches_cpu(dev):
 
 def test_one_rank_nccl_mesh_matches_unsharded(dev, tmp_path):
     """AS on the kernels under a one-rank NCCL particle mesh: the same
-    kernel launches and, to 1e-12, the same run as without the mesh."""
+    kernel launches and the same run as without the mesh, bit for bit,
+    the fused recursion capturing the mesh's collectives in its graph
+    (counted once per replay)."""
     import torch.distributed as dist
     import smc_tpu_torch
     from smc_tpu_torch.parallel import initialize_multihost, particle_mesh
@@ -213,6 +215,9 @@ def test_one_rank_nccl_mesh_matches_unsharded(dev, tmp_path):
     np.testing.assert_allclose(got.cloud.loglh.cpu().numpy(),
                                want.cloud.loglh.cpu().numpy(), rtol=1e-12)
     assert got.collectives == 2 * 5 + 2
+    assert got.fused and got.host_reads == 2
+    assert torch.equal(got.cloud.params, want.cloud.params)
+    assert got.log_mdd == want.log_mdd
 
 
 def _spd(k, batch, seed, dev):
@@ -367,3 +372,58 @@ def test_eigh_one_launch_per_stage_with_blocks(dev, fused):
                             fused=fused)
     assert res.fused == fused
     assert cuda_eigh.LAUNCHES["eigh"] - before == 7
+
+
+@pytest.mark.parametrize("case", ["n1", "n7", "n4096", "n_out_less",
+                                  "n_out_more", "zero", "nan", "nan_inside",
+                                  "spike", "capped", "no_resample"])
+def test_metropolis_chain_kernel_matches_plain(dev, case):
+    """The chain kernel against its plain version on the card, bit for bit,
+    in tests/torch_metropolis.py's cases (sizes, n_out != n, zero and NaN
+    weights, a single non-zero weight, a capped chain, no resample): one
+    launch each."""
+    from smc_tpu_torch.ops import cuda_metropolis
+    from smc_tpu_torch.ops.resample import chain_steps
+    from torch_metropolis import chain_case
+    w, n_out, steps, cap, flag, key = chain_case(case)
+    wt, key = torch.as_tensor(w, device=dev), key.to(dev)
+    steps_t = (chain_steps(wt, 0.01, cap)[0] if steps is None
+               else torch.tensor(steps, device=dev))
+    flag_t = torch.tensor(flag, device=dev)
+    before = cuda_metropolis.LAUNCHES["metropolis"]
+    got = cuda_metropolis.metropolis_chain(wt, key, steps_t, flag_t, n_out)
+    torch.cuda.synchronize(dev)
+    assert cuda_metropolis.LAUNCHES["metropolis"] - before == 1
+    want = cuda_metropolis.metropolis_chain_plain(wt, key, steps_t, flag_t,
+                                                  n_out)
+    assert torch.equal(got, want)
+
+
+def test_fused_metropolis_run_equals_host_loop_on_card(dev):
+    """The linear fixture with Metropolis resampling at 2,048 particles:
+    fused (a graph replay per stage, the chain kernel inside it) and the
+    host loop give the same bits and Doeblin lengths, one chain launch per
+    stage each."""
+    import smc_tpu_torch
+    from smc_tpu_torch.models.linear import (linear_parameters,
+                                             make_linear_loglike,
+                                             generate_linear_data)
+    from smc_tpu_torch.ops import cuda_metropolis
+    data, X = generate_linear_data(seed=1793)
+    out = {}
+    for fused in (True, False):
+        before = cuda_metropolis.LAUNCHES["metropolis"]
+        res = smc_tpu_torch.smc(make_linear_loglike(X), linear_parameters(),
+                                data, n_parts=2048, n_phi=20, lam=2.1,
+                                resampling_method="metropolis",
+                                verbose="none", seed=2, device=dev,
+                                fused=fused)
+        out[fused] = res, cuda_metropolis.LAUNCHES["metropolis"] - before
+    (a, la), (b, lb) = out[True], out[False]
+    assert a.fused and not b.fused
+    assert la == lb == 19
+    assert torch.equal(a.cloud.params, b.cloud.params)
+    assert a.log_mdd == b.log_mdd
+    np.testing.assert_array_equal(a.W, b.W)
+    assert a.chain_lengths == b.chain_lengths and a.chain_lengths
+    assert a.host_reads == 2 and b.host_reads == 19

@@ -1,9 +1,11 @@
 """smc_tpu_torch's fused recursion on the CPU: `fused=True` (the recursion on
 device buffers, read once per chunk; a CUDA graph replay per stage on a
 card) against the host loop `fused=False`, bit for bit, in the seven cases
-of tests/test_fused.py; the read count, masked stages, a NaN ESS, the
-refusals, the chunk's stage lines against the JAX package's, and one
-device-select stage against the JAX stage body with its draws replayed."""
+of tests/test_fused.py and under Metropolis resampling; the read count,
+masked stages, a NaN ESS, the refusals, the Doeblin lengths against the
+JAX package's, the chunk's stage lines against the JAX package's, and
+device-select stages against the JAX stage body with its draws
+replayed."""
 
 import math
 import sys
@@ -18,6 +20,7 @@ import jax
 import jax.numpy as jnp
 
 from smc_tpu import diagnostics as jdiag
+from smc_tpu.ops import resample as jr
 from smc_tpu.params import ParamSpace as JParamSpace
 from smc_tpu.smc import make_stage_core as j_make_stage_core
 from smc_tpu.models import linear as jlin
@@ -125,32 +128,101 @@ def test_fused_matches_host_across_chunk_boundaries(reg):
     assert fused.host_reads == -(-n_stages // 16) + 1
 
 
+@pytest.mark.parametrize("kwargs", [
+    dict(), dict(use_fixed_schedule=False, tempering_target=0.95),
+    dict(fused_chunk_stages=7)], ids=["fixed", "adaptive", "chunks"])
+def test_fused_matches_host_under_metropolis(reg, kwargs):
+    """Metropolis resampling, fixed and adaptive schedules and across
+    chunks of 7: bit for bit, the same Doeblin lengths (one per resample
+    stage), one read per stage in the host loop, one per chunk and one at
+    the end fused."""
+    y, ll = reg
+    host, fused = _both(ll, regression_parameters, y, n_parts=256, n_phi=30,
+                        lam=2.0, alpha=0.9, seed=3, verbose="none",
+                        resampling_method="metropolis", **kwargs)
+    _assert_runs_equal(host, fused)
+    n_stages = len(host.cloud.tempering_schedule) - 1
+    assert fused.chain_lengths == host.chain_lengths
+    assert len(host.chain_lengths) == host.cloud.resamples > 1
+    assert host.host_reads == n_stages
+    chunk = kwargs.get("fused_chunk_stages", 30)
+    assert fused.host_reads == -(-n_stages // chunk) + 1
+
+
+def test_chain_lengths_are_jax_doeblin_lengths(reg, monkeypatch):
+    """SMCResult.chain_lengths holds, for each stage that resampled, JAX's
+    metropolis_n_iter of the weights the stage's chain ran on, in both
+    drivers."""
+    smc_mod = sys.modules["smc_tpu_torch.smc"]
+    real, seen = smc_mod.metropolis_adaptive, []
+
+    def record(draws, weights, **kw):
+        seen.append((weights.clone(), bool(kw["flag"])))
+        return real(draws, weights, **kw)
+
+    monkeypatch.setattr(smc_mod, "metropolis_adaptive", record)
+    y, ll = reg
+    for fused in (True, False):
+        seen.clear()
+        res = smc_tpu_torch.smc(ll, regression_parameters(), y, n_parts=256,
+                                n_phi=30, lam=2.0, seed=8, verbose="none",
+                                resampling_method="metropolis", fused=fused,
+                                device="cpu")
+        want = [jr.metropolis_n_iter(w.numpy()) for w, did in seen if did]
+        assert res.chain_lengths == want
+        assert len(want) == res.cloud.resamples > 1
+
+
+@pytest.fixture(scope="module")
+def gloo_group(tmp_path_factory):
+    """A one-rank gloo process group of this process."""
+    import torch.distributed as dist
+    store = dist.FileStore(str(tmp_path_factory.mktemp("gloo") / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("kwargs,match", [
     (dict(run_test=True, verbose="low"), "run_test"),
     (dict(verbose="high"), "verbose"),
-    (dict(resampling_method="metropolis"), "Queue A item 5"),
-    (dict(mesh=StubMesh(2)), "Queue A item 6")])
-def test_fused_auto_selection_and_validation(reg, kwargs, match):
+    (dict(resampling_method="metropolis"), None),
+    (dict(mesh="gloo"), None)])
+def test_fused_auto_selection_and_validation(reg, gloo_group, kwargs, match):
     """fused=True where smc() cannot fuse raises ValueError; fused=None
-    picks the host loop there."""
+    picks the host loop there. Under Metropolis resampling and on a CPU
+    gloo mesh (a one-rank mesh over this process's gloo group) fused=None
+    picks the fused driver, as the JAX package does, and fused=True
+    raises nothing."""
     y, ll = reg
+    if "mesh" in kwargs:
+        kwargs = dict(mesh=StubMesh(1, gloo_group))
+        assert _fuse_limit(kwargs["mesh"], TorchDraws(0, "cpu"),
+                           torch.device("cpu")) is None
+    run = lambda **kw: smc_tpu_torch.smc(
+        ll, regression_parameters(), y, n_parts=64, n_phi=5, device="cpu",
+        **kwargs, **kw)
+    if match is None:
+        assert run().fused and run(fused=True).fused
+        return
     with pytest.raises(ValueError, match=match):
-        smc_tpu_torch.smc(ll, regression_parameters(), y, n_parts=256,
-                          n_phi=20, fused=True, device="cpu", **kwargs)
-    if "mesh" not in kwargs:
-        res = smc_tpu_torch.smc(ll, regression_parameters(), y, n_parts=64,
-                                n_phi=5, device="cpu", **kwargs)
-        assert not res.fused
+        run(fused=True)
+    assert not run().fused
 
 
-def test_fuse_limits():
-    """Replayed draws can be fused on the CPU, not on a card; the
-    automatic choice fuses a plain run."""
+def test_fuse_limits(gloo_group):
+    """Replayed draws can be fused on the CPU, not on a card; a gloo mesh
+    on the CPU, not on a card; the automatic choice fuses a plain run."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert _fuse_limit("systematic", None, ReplayDraws([]), cpu) is None
-    assert "ReplayDraws" in _fuse_limit("systematic", None, ReplayDraws([]),
-                                        cuda)
-    assert _fuse_limit("multinomial", None, TorchDraws(0, cpu), cuda) is None
+    assert _fuse_limit(None, ReplayDraws([]), cpu) is None
+    assert "ReplayDraws" in _fuse_limit(None, ReplayDraws([]), cuda)
+    assert _fuse_limit(None, TorchDraws(0, cpu), cuda) is None
+    mesh = StubMesh(1, gloo_group)
+    assert _fuse_limit(mesh, TorchDraws(0, cpu), cpu) is None
+    assert "gloo particle mesh on a CUDA device" in _fuse_limit(
+        mesh, TorchDraws(0, cpu), cuda)
 
 
 def test_fused_no_weight_matrices(reg):
@@ -284,13 +356,10 @@ def test_chunk_stage_prints_match_jax(capsys):
     assert capsys.readouterr().out == ""
 
 
-@pytest.mark.parametrize("skew,resampled", [(2.5, True), (0.05, False)],
-                         ids=["resampling", "not_resampling"])
-def test_device_select_stage_matches_jax_stage_core(skew, resampled):
-    """One stage of the linear fixture at N = 64 near its posterior, the
-    JAX stage key's draws replayed (the resampling uniform recorded on
-    both stages): the device select takes the resampled or the identity
-    rows as the JAX lax.cond does."""
+def _jax_stage_and_port_stage(skew, resampled, method):
+    """One stage of the linear fixture at N = 64 near its posterior through
+    the JAX stage body and the port's with the JAX stage key's draws
+    replayed: (JAX outputs, port outputs, replay draws)."""
     n = 64
     data, X = jlin.generate_linear_data(seed=1793)
     jspace = JParamSpace(jlin.linear_parameters())
@@ -298,9 +367,8 @@ def test_device_select_stage_matches_jax_stage_core(skew, resampled):
     jll = jax.vmap(lambda t: jlin.make_linear_loglike(X)(t, data))
     tll = torch.func.vmap(lambda t: make_linear_loglike(X)(t, data))
     threshold = 0.5 * n
-    jstage = j_make_stage_core(jspace, jll, 1, 1, 0.9, "systematic",
-                               threshold)
-    tstage = make_stage_core(tspace, tll, 1, 1, 0.9, "systematic", threshold)
+    jstage = j_make_stage_core(jspace, jll, 1, 1, 0.9, method, threshold)
+    tstage = make_stage_core(tspace, tll, 1, 1, 0.9, method, threshold)
     rng = np.random.default_rng(4)
     true = np.array([1.0, 1.0, 1.0, 2.0, 2.0, 1.0, 3.0, 3.0, 1.0])
     th = true * (1.0 + 0.02 * rng.standard_normal((n, 9)))
@@ -315,8 +383,12 @@ def test_device_select_stage_matches_jax_stage_core(skew, resampled):
     assert bool(jout[9]) == resampled
     tstate = [torch.tensor(a) for a in state]
     draws = ReplayDraws(stage_replay(skey, tspace, tstate, phi_n, phi_n1,
-                                     threshold, resampled))
+                                     threshold, resampled, method=method))
     tout = tstage(draws, *tstate, phi_n, phi_n1, 0.3)
+    return jout, tout, draws
+
+
+def _assert_stage_matches_jax(jout, tout, draws, resampled):
     assert draws.remaining() == 0
     assert bool(tout[9]) == resampled and tout[9].dim() == 0
     np.testing.assert_array_equal(tout[5].numpy(), np.asarray(jout[5]))
@@ -326,5 +398,26 @@ def test_device_select_stage_matches_jax_stage_core(skew, resampled):
     for i in (8, 10, 11):
         np.testing.assert_allclose(tout[i].item(), float(jout[i]),
                                    rtol=REPLAY_TOL)
+    assert float(tout[12]) == 0.0
     if not resampled:
         np.testing.assert_array_equal(tout[4].numpy(), tout[7].numpy())
+
+
+@pytest.mark.parametrize("skew,resampled", [(2.5, True), (0.05, False)],
+                         ids=["resampling", "not_resampling"])
+def test_device_select_stage_matches_jax_stage_core(skew, resampled):
+    """One stage of the linear fixture at N = 64 near its posterior, the
+    JAX stage key's draws replayed (the resampling uniform recorded on
+    both stages): the device select takes the resampled or the identity
+    rows as the JAX lax.cond does."""
+    _assert_stage_matches_jax(*_jax_stage_and_port_stage(
+        skew, resampled, "systematic"), resampled)
+
+
+@pytest.mark.parametrize("method", ["stratified", "multinomial"])
+def test_device_select_stage_matches_jax_for_each_resampler(method):
+    """The same resampling stage under the other non-Metropolis resamplers
+    (one uniform per particle, drawn on every stage): JAX's stage to
+    1e-12."""
+    _assert_stage_matches_jax(*_jax_stage_and_port_stage(2.5, True, method),
+                              True)

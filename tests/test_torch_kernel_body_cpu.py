@@ -399,3 +399,90 @@ def test_eigh_plain_has_the_kernel_form():
                                * cuda_eigh.MAX_K)
     with pytest.raises(ValueError, match="k <= 1024"):
         cuda_eigh.check_block(cuda_eigh.MAX_K + 1)
+
+
+# --- the Metropolis chain ---------------------------------------------------
+
+@pytest.fixture(scope="module")
+def metropolis_lib():
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the host version of the chain")
+    lib = ctypes.CDLL(str(_build.build_metropolis_cpu_library()))
+    P, L = ctypes.c_void_p, ctypes.c_longlong
+    lib.smc_philox_cpu.argtypes = [P, P, P]
+    lib.smc_philox_cpu.restype = None
+    lib.smc_metropolis_cpu.argtypes = [P, L, L, P, P, P, P]
+    lib.smc_metropolis_cpu.restype = ctypes.c_int
+    return lib
+
+
+def _chain_body(lib, w, key, steps, flag, n_out):
+    """The ancestors of the host build for the weights w (f64 tensor)."""
+    idx = torch.empty(n_out, dtype=torch.int64)
+    f = torch.tensor(bool(flag))
+    rc = lib.smc_metropolis_cpu(w.data_ptr(), w.shape[0], n_out,
+                                key.data_ptr(), f.data_ptr(),
+                                steps.data_ptr(), idx.data_ptr())
+    assert rc == 0
+    return idx
+
+
+@pytest.mark.parametrize("vector", range(3))
+def test_philox_body_known_answers(metropolis_lib, vector):
+    """The header's Philox4x32-10 built with g++ gives Random123's
+    known-answer outputs."""
+    from torch_metropolis import PHILOX_KAT
+    ctr, key, want = PHILOX_KAT[vector]
+    c, k = np.array(ctr, np.uint32), np.array(key, np.uint32)
+    out = np.zeros(4, np.uint32)
+    metropolis_lib.smc_philox_cpu(c.ctypes.data, k.ctypes.data,
+                                  out.ctypes.data)
+    assert tuple(int(x) for x in out) == want
+
+
+@pytest.mark.parametrize("case", ["n1", "n7", "n4096", "n_out_less",
+                                  "n_out_more", "zero", "nan", "nan_inside",
+                                  "spike", "capped", "no_resample"])
+def test_metropolis_body_matches_plain(metropolis_lib, case):
+    """The chain built with g++ equals ops/cuda_metropolis.py's plain
+    version bit for bit. Zero weights, NaN weights (a non-finite kappa
+    gives 0 steps) and a stage that does not resample give the identity; a
+    single non-zero weight draws the slots that reached it; a chain past
+    its cap runs the cap's steps."""
+    from torch_metropolis import chain_case
+    from smc_tpu_torch.ops.cuda_metropolis import metropolis_chain_plain
+    from smc_tpu_torch.ops.resample import chain_steps
+    w, n_out, steps, cap, flag, key = chain_case(case)
+    wt = torch.as_tensor(w)
+    steps_t = (chain_steps(wt, 0.01, cap)[0] if steps is None
+               else torch.tensor(steps))
+    want = metropolis_chain_plain(wt, key, steps_t, torch.tensor(flag), n_out)
+    got = _chain_body(metropolis_lib, wt, key, steps_t, flag, n_out)
+    assert torch.equal(got, want)
+    start = torch.arange(n_out) % w.shape[0]
+    if case in ("zero", "nan", "no_resample"):
+        assert torch.equal(got, start)
+    if case == "nan":
+        assert int(steps_t) == 0
+    if case == "spike":
+        assert int(steps_t) == int(np.ceil(64 * np.log(100.0)))
+        assert (got == 17).float().mean() > 0.98
+    if case == "capped":
+        assert int(steps_t) == cap
+    if case not in ("zero", "nan", "no_resample", "n1"):
+        assert not torch.equal(got, start)
+
+
+def test_metropolis_body_counts_follow_the_weights(metropolis_lib):
+    """The host build's ancestors over 40 weights at a 1e-6 bias bound:
+    the counts pass a chi-square test against N w / sum(w) at 0.1%."""
+    from scipy import stats
+    from smc_tpu_torch.ops.resample import chain_steps
+    rng = np.random.default_rng(8)
+    w = np.exp(rng.standard_normal(40))
+    wt = torch.as_tensor(w)
+    steps, _ = chain_steps(wt, 1e-6)
+    idx = _chain_body(metropolis_lib, wt, torch.tensor([12345, 678]), steps,
+                      True, 20_000)
+    counts = np.bincount(idx.numpy(), minlength=40)
+    assert stats.chisquare(counts, 20_000 * w / w.sum()).pvalue > 1e-3

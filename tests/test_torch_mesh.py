@@ -1,8 +1,10 @@
 """smc_tpu_torch's particle mesh on the CPU: smc(..., mesh=particle_mesh())
 on 2 and 4 gloo ranks (worker processes running tests/torch_mesh_worker.py
 over a FileStore) against the one-process run, every rank bitwise equal to
-the others, and one stage with the JAX package's draws replayed through the
-sharded draws on 2 ranks against the JAX stage."""
+the others, the fused recursion (smc()'s choice on CPU ranks) against the
+host loop bit for bit, one stage with the JAX package's draws replayed
+through the sharded draws on 2 ranks against the JAX stage, and the fused
+recursion's stop rule under a mesh."""
 
 import os
 import subprocess
@@ -34,7 +36,7 @@ REPLAY_TOL = 1e-12    # a replayed stage against the JAX package's
 WORKER_TIMEOUT = 240  # seconds; each rank's process group times out at 120
 CASES = {2: ["linear", "as_plain", "adaptive", "metropolis", "resume",
              "tempered0", "tempered05", "indivisible", "verbose_high",
-             "replay"],
+             "replay", "linear_host", "adaptive_host", "metropolis_host"],
          4: ["linear", "as_plain"]}
 CLOUD_FIELDS = ("params", "loglh", "weights", "accept", "mean", "w", "W",
                 "schedule", "ESS")
@@ -119,7 +121,8 @@ def runs(tmp_path_factory):
         ref_dir = root / "one"
         os.makedirs(ref_dir)
         ref = {name: worker.run_case(name, None, str(ref_dir))
-               for name in CASES[2] if name not in ("indivisible", "replay")}
+               for name in CASES[2] if name not in ("indivisible", "replay")
+               and not name.endswith("_host")}
     finally:
         for p in procs:
             _wait(p)
@@ -176,6 +179,29 @@ def test_paths_on_two_ranks(runs, name):
     _matches(ref[name], per_rank[0])
     if name == "metropolis":
         assert len(ref[name]["chain_lengths"]) > 0
+
+
+@pytest.mark.parametrize("name", ["linear", "adaptive", "metropolis"])
+def test_fused_mesh_equals_host_loop_mesh(runs, name):
+    """On 2 CPU ranks smc() picks the fused recursion; it equals the
+    host-loop mesh (fused=False) bit for bit, each rank every other, and
+    both the one-process run at rtol 1e-9. The fused ranks read once per
+    chunk and once at the end, the host loop once per stage."""
+    ref, ranks, _ = runs
+    fused, host = ranks[(2, name)], ranks[(2, name + "_host")]
+    _ranks_equal(fused)
+    _ranks_equal(host)
+    assert all(bool(r["fused"]) for r in fused)
+    assert not any(bool(r["fused"]) for r in host)
+    for k in CLOUD_FIELDS + ("log_mdd", "chain_lengths", "collectives",
+                             "bytes", "init_rounds"):
+        np.testing.assert_array_equal(fused[0][k], host[0][k], err_msg=k)
+    _matches(ref[name], fused[0])
+    _matches(ref[name], host[0])
+    n_stages = len(ref[name]["schedule"]) - 1
+    assert int(host[0]["host_reads"]) == n_stages
+    chunk = worker.LINEAR["n_phi"]
+    assert int(fused[0]["host_reads"]) == -(-n_stages // chunk) + 1
 
 
 def test_resume_on_two_ranks_is_bitwise(runs):
@@ -251,3 +277,46 @@ def test_initialize_multihost_defaults_to_the_card(monkeypatch, backend):
                                     store=object())
     assert dev == torch.device("cpu") and len(current) == 1
     assert [kw["backend"] for kw in joined] == [backend, backend]
+
+
+class _RandomEvent:
+    """A stand-in for torch.cuda.Event whose query() answers at random."""
+
+    def __init__(self, rng):
+        self.rng = rng
+
+    def record(self):
+        pass
+
+    def synchronize(self):
+        pass
+
+    def query(self):
+        return bool(self.rng.integers(2))
+
+
+def _replays(done_at, size, rng):
+    """The stages a fused chunk issues when stage `done_at` (0-based) is the
+    first whose done flag is set, under _DoneWatch's rule."""
+    from smc_tpu_torch.smc import _DoneWatch
+    watch = _DoneWatch(torch.device("cpu"), size,
+                       event=lambda: _RandomEvent(rng))
+    issued = 0
+    while issued < size:
+        issued += 1
+        if watch.after_stage(torch.tensor(issued - 1 >= done_at)):
+            break
+    return issued
+
+
+@pytest.mark.parametrize("done_at", [0, 3, 17, 30])
+def test_mesh_stop_rule_ignores_event_timing(done_at):
+    """The fused recursion's stop rule never polls: whatever its events
+    answer, a chunk issues the same number of replays (so under a mesh
+    every rank joins every collective), LOOKAHEAD past the first done
+    stage or up to the chunk's end."""
+    from smc_tpu_torch.smc import LOOKAHEAD
+    size = 25
+    counts = {_replays(done_at, size, np.random.default_rng(s))
+              for s in range(40)}
+    assert counts == {min(size, done_at + 1 + LOOKAHEAD)}

@@ -1,7 +1,8 @@
 """smc_tpu_torch's Metropolis resampler: the fixed-length chain against the
 JAX package's `_metropolis` with its draws replayed (indices equal), the
-adaptive Doeblin length and its cap, and a chi-square check of ancestor
-counts against the weights."""
+adaptive Doeblin length and its cap, a chi-square check of ancestor
+counts against the weights, and the adaptive chain's Philox stream
+(ops/cuda_metropolis.py's plain version) against its known answers."""
 
 import math
 import warnings
@@ -18,9 +19,11 @@ from scipy import stats
 
 from smc_tpu.ops import resample as jr
 
+from smc_tpu_torch.ops import cuda_metropolis
 from smc_tpu_torch.ops.resample import (resample, metropolis_n_iter,
                                         metropolis_chain_length, _CHAIN_BLOCK,
-                                        VALID_METHODS)
+                                        VALID_METHODS, chain_steps,
+                                        metropolis_adaptive)
 from smc_tpu_torch.rng import ReplayDraws, TorchDraws
 
 
@@ -107,3 +110,46 @@ def test_metropolis_is_a_valid_method():
     assert VALID_METHODS == jr.VALID_METHODS
     with pytest.raises(ValueError, match="Invalid resampler"):
         resample(TorchDraws(0, device="cpu"), torch.ones(4), method="alias")
+
+
+@pytest.mark.parametrize("vector", range(3))
+def test_philox_plain_known_answers(vector):
+    """The plain version's Philox4x32-10 (int64 words, products split in
+    16-bit halves) gives Random123's known-answer outputs, all-ones words
+    included (where an unsplit product would pass 2^63)."""
+    from torch_metropolis import PHILOX_KAT
+    ctr, key, want = PHILOX_KAT[vector]
+    out = cuda_metropolis.philox4x32_10(
+        [torch.tensor([c], dtype=torch.int64) for c in ctr], key)
+    assert tuple(int(x) for x in out) == want
+
+
+def test_chain_steps_match_jax_and_define_the_edges():
+    """The device Doeblin length equals the JAX package's metropolis_n_iter;
+    the steps are capped; a non-finite kappa (NaN or zero weights) gives
+    0 steps and a Doeblin length of 0, and the chain is then the
+    identity."""
+    for seed, eps in ((1, 0.01), (2, 1e-3)):
+        w = _weights(3000, seed)
+        steps, doeblin = chain_steps(torch.tensor(w), eps, 50)
+        assert float(doeblin) == jr.metropolis_n_iter(w, eps)
+        assert int(steps) == min(50, jr.metropolis_n_iter(w, eps))
+    for bad in (torch.full((9,), math.nan, dtype=torch.float64),
+                torch.zeros(9, dtype=torch.float64)):
+        steps, doeblin = chain_steps(bad)
+        assert (int(steps), float(doeblin)) == (0, 0.0)
+        idx, doeblin = metropolis_adaptive(TorchDraws(0, "cpu"), bad)
+        assert torch.equal(idx, torch.arange(9)) and float(doeblin) == 0.0
+
+
+def test_adaptive_chain_draws_one_key_whatever_the_flag():
+    """A stage's draws do not depend on its data: one [2] key is drawn
+    where the flag is false too, and the chain is then the identity with a
+    Doeblin length of 0."""
+    w = torch.tensor(_weights(100, 3))
+    for flag in (True, False):
+        draws = ReplayDraws([("integers", np.array([7, 11]))])
+        idx, doeblin = metropolis_adaptive(draws, w, flag=torch.tensor(flag))
+        assert draws.remaining() == 0
+        assert (float(doeblin) > 0) == flag
+        assert torch.equal(idx, torch.arange(100)) != flag

@@ -5,7 +5,9 @@ tests/test_torch_mesh.py. Not a test module itself, and it imports no jax:
 
 Each CASE runs smc_tpu_torch under `particle_mesh()` and writes this rank's
 result to OUT/<case>_r<RANK>.npz. `run_case(name, None, out)` runs the same
-case without a mesh in one process: the tests' reference.
+case without a mesh in one process: the tests' reference. smc() picks the
+fused recursion on these CPU ranks (eagerly, as on one CPU); a case named
+<case>_host runs <case> with fused=False.
 """
 
 import contextlib
@@ -44,7 +46,8 @@ def _result(res) -> dict:
                 ESS=np.asarray(c.ESS), mean=res.posterior_mean(),
                 init_rounds=res.init_rounds, chain_lengths=np.asarray(
                     res.chain_lengths, np.int64),
-                collectives=res.collectives, bytes=res.collective_bytes)
+                collectives=res.collectives, bytes=res.collective_bytes,
+                fused=res.fused)
 
 
 def _linear(mesh, **kw):
@@ -130,16 +133,20 @@ def _replay_stage(mesh, out):
                 remaining=draws.remaining())
 
 
+# the linear fixture's cases, and their smc() kwargs
+LINEAR_CASES = {"linear": {}, "adaptive": dict(use_fixed_schedule=False),
+                "metropolis": dict(resampling_method="metropolis",
+                                   n_blocks=3)}
+
+
 def run_case(name: str, mesh, out: str) -> dict:
-    if name == "linear":
-        return _result(_linear(mesh))
+    base, host = name.removesuffix("_host"), name.endswith("_host")
+    if base in LINEAR_CASES:
+        res = _linear(mesh, **LINEAR_CASES[base],
+                      **(dict(fused=False) if host else {}))
+        return dict(_result(res), host_reads=res.host_reads)
     if name == "as_plain":
         return _result(_as_plain(mesh))
-    if name == "adaptive":
-        return _result(_linear(mesh, use_fixed_schedule=False))
-    if name == "metropolis":
-        return _result(_linear(mesh, resampling_method="metropolis",
-                               n_blocks=3))
     if name == "resume":
         return _resume(mesh, out)
     if name in ("tempered0", "tempered05"):

@@ -80,12 +80,15 @@ def tiny_system(N=64, seed=5):
 
 
 class StubMesh:
-    """What smc() reads of a particle mesh of `size` ranks before its first
-    collective (a DeviceMesh needs a process group)."""
+    """What smc() reads of a particle mesh of `size` ranks (a DeviceMesh
+    needs a process group): with `group` (a process group of this process)
+    it stands for a mesh over that group, else it serves only until the
+    first collective."""
     mesh_dim_names = ("parts",)
 
-    def __init__(self, size):
+    def __init__(self, size, group=None):
         self._size = size
+        self._group = group
 
     def size(self):
         return self._size
@@ -94,4 +97,4 @@ class StubMesh:
         return 0
 
     def get_group(self, dim):
-        return None
+        return self._group

@@ -52,20 +52,23 @@ def replay_mutation(key, n, cov_free, perm, sizes, alpha):
 
 
 def stage_replay(skey, tspace, state, phi_n, phi_n1, threshold, resampled,
-                 alpha=0.9):
+                 alpha=0.9, method="systematic"):
     """Replay entries for one port stage (one block) from the JAX stage
-    key: the resampling uniform (drawn on every stage, as JAX splits kr on
-    every stage), the permutation, the mutation draws (sign-matched to the
-    port's own block covariance)."""
+    key: the resampling uniforms of `method` (drawn on every stage, as JAX
+    splits kr on every stage; one for systematic, one per particle for
+    stratified and multinomial), the permutation, the mutation draws
+    (sign-matched to the port's own block covariance)."""
     kr, kp, km = jax.random.split(skey, 3)
     params, loglh, logprior, old, weights = state
     _, norm_w, ess, _ = correct(loglh, old, weights, phi_n, phi_n1)
     assert bool(ess < threshold) == resampled
-    u = np.asarray(jax.random.uniform(kr, (), dtype=jnp.float64))
+    shape = () if method == "systematic" else (params.shape[0],)
+    u = np.asarray(jax.random.uniform(kr, shape, dtype=jnp.float64))
     entries = [("uniform", u)]
     w = norm_w
     if resampled:
-        params = params[resample(ReplayDraws([("uniform", u)]), norm_w)]
+        params = params[resample(ReplayDraws([("uniform", u)]), norm_w,
+                                 method=method)]
         w = torch.ones_like(norm_w)
     perm = np.asarray(jax.random.permutation(kp, tspace.n_free))
     entries.append(("permutation", perm))
