@@ -2,18 +2,21 @@
 
 Each CUDA source is compiled by nvcc for sm_90a (Hopper) into a plain-C
 shared library that its wrapper loads with ctypes: dsge_kernels.cu for
-ops/cuda_dsge.py, eigh_kernel.cu for ops/cuda_eigh.py, metropolis_kernel.cu
-for ops/cuda_metropolis.py. No PyTorch headers
-are involved, so a build takes seconds; `build_cuda_libraries` runs one
-nvcc per source, all at once. It happens at first use, into
+ops/cuda_dsge.py, once per n_state of the domain (library "dsge_ns<n>",
+with every n_shock: `DSGE_MAX_DIM`, csrc/dsge_sizes.cuh), eigh_kernel.cu
+for ops/cuda_eigh.py, metropolis_kernel.cu for ops/cuda_metropolis.py. No
+PyTorch headers are involved; `build_cuda_libraries` runs one nvcc per
+library, all at once. A
+wrapper builds the library it needs at its first use, into
 smc_tpu_torch/_build/, under a name keyed by a hash of the sources and flags
 (an edit rebuilds). Each build writes a temporary file and renames it into
 place, so concurrent builds cannot leave a partial library behind. The
 compiler's output (for nvcc, ptxas registers and spills) is kept beside the
 library as <library>.log.
 
-`build_cpu_library` compiles csrc/dsge_cpu.cpp (the per-particle bodies as
-plain host loops), `build_eigh_cpu_library` csrc/eigh_cpu.cpp (the Jacobi
+`build_cpu_library(n_state, n_shock)` compiles csrc/dsge_cpu.cpp (the
+per-particle bodies as plain host loops) for one shape,
+`build_eigh_cpu_library` csrc/eigh_cpu.cpp (the Jacobi
 body, block by block) and `build_metropolis_cpu_library`
 csrc/metropolis_cpu.cpp (the chain, slot by slot) with g++. Only the tests
 use them.
@@ -86,26 +89,36 @@ def _compile(compiler, flags, source: Path, stem: str) -> Path:
     return out
 
 
-# CUDA sources and the stems of their libraries
-CUDA_SOURCES = {"dsge": ("dsge_kernels.cu", "libsmc_dsge_cuda"),
-                "eigh": ("eigh_kernel.cu", "libsmc_eigh_cuda"),
-                "metropolis": ("metropolis_kernel.cu",
-                               "libsmc_metropolis_cuda")}
+# the DSGE kernels' domain, that of the TPU kernels they replace: n_state
+# and n_shock 1..DSGE_MAX_DIM (n_obs 3). The one place it is set: the build
+# passes it to the compiler (csrc/dsge_sizes.cuh checks it) and
+# ops/cuda_dsge.py reads it.
+DSGE_MAX_DIM = 8
+DSGE_STATES = range(1, DSGE_MAX_DIM + 1)
+_DSGE_FLAGS = (f"-DSMC_MAX_DIM={DSGE_MAX_DIM}",)
+
+# the kernel libraries: name -> (source, library stem, extra nvcc flags)
+CUDA_LIBRARIES = {
+    **{f"dsge_ns{k}": ("dsge_kernels.cu", f"libsmc_dsge_ns{k}_cuda",
+                       (*_DSGE_FLAGS, f"-DSMC_NS={k}")) for k in DSGE_STATES},
+    "eigh": ("eigh_kernel.cu", "libsmc_eigh_cuda", ()),
+    "metropolis": ("metropolis_kernel.cu", "libsmc_metropolis_cuda", ()),
+}
 
 
-def build_cuda_library(name: str = "dsge") -> Path:
-    """Path of one sm_90a kernel library (a key of CUDA_SOURCES), built if
-    missing."""
-    source, stem = CUDA_SOURCES[name]
-    return _compile(find_nvcc(), NVCC_FLAGS, CSRC / source, stem)
+def build_cuda_library(name: str = "dsge_ns6") -> Path:
+    """Path of one sm_90a kernel library (a key of CUDA_LIBRARIES; the
+    default is An-Schorfheide's n_state), built if missing."""
+    source, stem, extra = CUDA_LIBRARIES[name]
+    return _compile(find_nvcc(), [*NVCC_FLAGS, *extra], CSRC / source, stem)
 
 
 def build_cuda_libraries() -> dict:
-    """Every kernel library, one nvcc per source, all started together:
+    """Every kernel library, one nvcc per library, all started together:
     {name: path}."""
-    with ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
+    with ThreadPoolExecutor(len(CUDA_LIBRARIES)) as pool:
         futures = {n: pool.submit(build_cuda_library, n)
-                   for n in CUDA_SOURCES}
+                   for n in CUDA_LIBRARIES}
         return {n: f.result() for n, f in futures.items()}
 
 
@@ -117,10 +130,13 @@ def _gxx() -> str:
     return gxx
 
 
-def build_cpu_library() -> Path:
-    """Path of the host build of the DSGE kernel bodies (tests only)."""
-    return _compile(_gxx(), GXX_FLAGS, CSRC / "dsge_cpu.cpp",
-                    "libsmc_dsge_cpu")
+def build_cpu_library(n_state: int = 6, n_shock: int = 3) -> Path:
+    """Path of the host build of the DSGE kernel bodies at one shape
+    (tests only; the default is An-Schorfheide's)."""
+    return _compile(_gxx(), [*GXX_FLAGS, *_DSGE_FLAGS,
+                             f"-DSMC_NS={n_state}", f"-DSMC_NK={n_shock}"],
+                    CSRC / "dsge_cpu.cpp",
+                    f"libsmc_dsge_cpu_ns{n_state}_nk{n_shock}")
 
 
 def build_eigh_cpu_library() -> Path:

@@ -3,15 +3,15 @@
 // the warp's tile in a local buffer. Only the tests use this library: it
 // checks the kernels' arithmetic, group layout and exchanges against the
 // plain PyTorch versions on a machine without a GPU. Same C interface as
-// dsge_kernels.cu, minus the stream; a call returns -2 if a body made a
+// dsge_kernels.cu, minus the stream, for the one shape the build sets
+// (SMC_NS, SMC_NK; dsge_sizes.cuh); a call returns -2 if a body made a
 // 16-byte tile load that is not 16-byte aligned (a fault on the card).
 #include <math.h>
 
 #include <vector>
 
 #include "dsge_particle.cuh"
-
-#define SMC_SIZES(X) X(6, 3) X(3, 3)
+#include "dsge_sizes.cuh"
 
 namespace {
 
@@ -21,7 +21,7 @@ void re_all(const double* A, const double* B, const double* C,
             long long n, int n_iter, double tol) {
   constexpr int G = smc::kReLanes;
   constexpr int P = smc::Group<NS, G>::kPerWarp;
-  std::vector<double> tile(smc::ReTile<NS, G>::kWarpDoubles);
+  std::vector<double> tile(smc::ReTile<NS, NK, G>::kWarpDoubles);
   for (long long w = 0; w * P < n; ++w)
     smc::re_solve_warp<NS, NK, G>(A, B, C, D, X, M, ok, n, w, n_iter, tol,
                                   tile.data());
@@ -32,7 +32,7 @@ void kalman_all(const double* T, const double* R, const double* Q,
                 const double* Z, const double* d, const double* H,
                 const double* data, int n_t, const unsigned char* ok,
                 long long n, int lyap_iter, double* out) {
-  constexpr int G = smc::kKalmanLanes;
+  constexpr int G = smc::kalman_lanes<NS>();
   constexpr int P = smc::Group<NS, G>::kPerWarp;
   std::vector<double> tile(smc::KalmanTile<NS, G>::kWarpDoubles);
   for (long long w = 0; w * P < n; ++w)

@@ -1,7 +1,9 @@
 // CUDA kernels for the batch-last DSGE likelihood, a group of lanes per
-// particle (smc::kReLanes for the RE solve, smc::kKalmanLanes for the Kalman
-// filter; bodies in dsge_particle.cuh), with plain C launchers (bound from
-// Python with ctypes, ops/cuda_dsge.py).
+// particle (smc::kReLanes for the RE solve, smc::kalman_lanes<NS>() for the
+// Kalman filter; bodies in dsge_particle.cuh), with plain C launchers (bound
+// from Python with ctypes, ops/cuda_dsge.py). One library per n_state: the
+// build sets SMC_NS and the library holds that n_state with every n_shock
+// of the domain (dsge_sizes.cuh).
 //
 // re_kernel      replaces smc_tpu/ops/pallas_dsge.py::_re_kernel
 // kalman_kernel  replaces smc_tpu/ops/pallas_dsge.py::_kalman_kernel
@@ -18,13 +20,13 @@
 #include <cuda_runtime.h>
 
 #include "dsge_particle.cuh"
+#include "dsge_sizes.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * smc::kWarp;
 constexpr int RG = smc::kReLanes;
-constexpr int KG = smc::kKalmanLanes;
 
 template <int NS, int G>
 long long n_warps(long long n) {
@@ -36,8 +38,14 @@ unsigned int n_blocks(long long warps) {
   return (unsigned int)((warps + kWarps - 1) / kWarps);
 }
 
+// No __launch_bounds__: with __launch_bounds__(kThreads) ptxas held some
+// instantiations to an occupancy step (128 or 168 registers) with spills
+// (RE <4,3> and <6,2>, Kalman <3,7>); without it every instantiation is
+// spill-free and <6,3> keeps its 140 and 252 registers. A block of kThreads
+// threads fits the register file at any count up to 255.
+
 template <int NS, int NK>
-__global__ void __launch_bounds__(kThreads)
+__global__ void
 re_kernel(const double* __restrict__ A, const double* __restrict__ B,
           const double* __restrict__ C, const double* __restrict__ D,
           double* __restrict__ X, double* __restrict__ M,
@@ -49,17 +57,18 @@ re_kernel(const double* __restrict__ A, const double* __restrict__ B,
   if (warp >= warps) return;
   smc::re_solve_warp<NS, NK, RG>(
       A, B, C, D, X, M, ok, n, warp, n_iter, tol,
-      smem + w * smc::ReTile<NS, RG>::kWarpDoubles);
+      smem + w * smc::ReTile<NS, NK, RG>::kWarpDoubles);
 }
 
 template <int NS, int NK>
-__global__ void __launch_bounds__(kThreads)
+__global__ void
 kalman_kernel(const double* __restrict__ T, const double* __restrict__ R,
               const double* __restrict__ Q, const double* __restrict__ Z,
               const double* __restrict__ d, const double* __restrict__ H,
               const double* __restrict__ data, int n_t,
               const unsigned char* __restrict__ ok, long long n,
               long long warps, int lyap_iter, double* __restrict__ out) {
+  constexpr int KG = smc::kalman_lanes<NS>();
   extern __shared__ __align__(16) double smem[];
   double* ys = smem + kWarps * smc::KalmanTile<NS, KG>::kWarpDoubles;
   for (int i = threadIdx.x; i < smc::kNObs * n_t; i += blockDim.x)
@@ -79,7 +88,7 @@ int launch_re(const double* A, const double* B, const double* C,
               long long n, int n_iter, double tol, cudaStream_t s) {
   const long long warps = n_warps<NS, RG>(n);
   const size_t smem =
-      sizeof(double) * kWarps * smc::ReTile<NS, RG>::kWarpDoubles;
+      sizeof(double) * kWarps * smc::ReTile<NS, NK, RG>::kWarpDoubles;
   re_kernel<NS, NK><<<n_blocks(warps), kThreads, smem, s>>>(
       A, B, C, D, X, M, ok, n, warps, n_iter, tol);
   return (int)cudaGetLastError();
@@ -87,6 +96,7 @@ int launch_re(const double* A, const double* B, const double* C,
 
 template <int NS>
 size_t kalman_smem(int n_t) {
+  constexpr int KG = smc::kalman_lanes<NS>();
   return sizeof(double) * (smc::kNObs * (size_t)n_t +
                            kWarps * smc::KalmanTile<NS, KG>::kWarpDoubles);
 }
@@ -96,7 +106,7 @@ int launch_kalman(const double* T, const double* R, const double* Q,
                   const double* Z, const double* d, const double* H,
                   const double* data, int n_t, const unsigned char* ok,
                   long long n, int lyap_iter, double* out, cudaStream_t s) {
-  const long long warps = n_warps<NS, KG>(n);
+  const long long warps = n_warps<NS, smc::kalman_lanes<NS>()>(n);
   const size_t smem = kalman_smem<NS>(n_t);
   kalman_kernel<NS, NK><<<n_blocks(warps), kThreads, smem, s>>>(
       T, R, Q, Z, d, H, data, n_t, ok, n, warps, lyap_iter, out);
@@ -104,8 +114,6 @@ int launch_kalman(const double* T, const double* R, const double* Q,
 }
 
 }  // namespace
-
-#define SMC_SIZES(X) X(6, 3) X(3, 3)
 
 // Allow every kernel dynamic shared memory up to `bytes` on the current
 // device (above the default 48 KB it must be allowed per kernel). Called

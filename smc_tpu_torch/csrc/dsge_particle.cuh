@@ -43,9 +43,14 @@ constexpr int kNObs = 3;
 // lane at 8 (no spills, 4 particles per warp). The Kalman filter repeats its
 // 3x3 work (F, M, the innovation solves) on every lane of a group, so it
 // takes the fewest lanes that still double the warps of one thread per
-// particle. PERF.md holds the measurements behind both.
+// particle, 2, up to n_state 6 (3 rows a lane); from n_state 7 two lanes
+// would hold 4 rows each, so those take 4 lanes of 2 rows. PERF.md holds
+// the measurements behind both.
 constexpr int kReLanes = 8;
-constexpr int kKalmanLanes = 2;
+template <int NS>
+SMC_HD constexpr int kalman_lanes() {
+  return NS <= 6 ? 2 : 4;
+}
 
 SMC_HD inline bool is_finite(double x) { return x - x == 0.0; }
 SMC_HD inline bool is_nan(double x) { return x != x; }
@@ -334,10 +339,12 @@ SMC_HD inline void exit_test_rows(const double (&a0)[RPL][NS],
   }
 }
 
-// The RE tile: mat [NS][3 NS], piv [3 NS], red [3][NS].
-template <int NS, int G>
+// The RE tile: mat [NS][LD], piv [LD], red [3][NS], with LD the wider of
+// the cyclic reduction's [A1 | A0 | A2] and the last solve's
+// [B + C X | D | C] (n_shock above n_state widens the second).
+template <int NS, int NK, int G>
 struct ReTile {
-  static constexpr int kLd = even(3 * NS);
+  static constexpr int kLd = even(2 * NS + (NS > NK ? NS : NK));
   static constexpr int kStride = Group<NS, G>::template stride<kLd, 3>();
   static constexpr int kWarpDoubles = kStride * Group<NS, G>::kPerWarp;
 };
@@ -361,8 +368,8 @@ SMC_HD void re_solve_warp(const double* __restrict__ A,
                           double* tile) {
   using Gr = Group<NS, G>;
   constexpr int RPL = Gr::RPL;
-  constexpr int LD = ReTile<NS, G>::kLd;
-  constexpr int ST = ReTile<NS, G>::kStride;
+  constexpr int LD = ReTile<NS, NK, G>::kLd;
+  constexpr int ST = ReTile<NS, NK, G>::kStride;
   constexpr int O_RED = NS * LD + LD;
 
   Lanes<double[RPL][NS]> a0, a1, a2, ah;

@@ -234,14 +234,17 @@ class LinearDSGE:
     system_fn -> (A, B, C, D), measurement_fn -> (d [n_o,N], Z, H),
     shock_cov_fn -> Q, every matrix batch-last [r, c, N] and contiguous.
 
-    likelihood_backend "kernel" (default) goes through ops/cuda_dsge.py:
-    the hand-written CUDA kernels for CUDA tensors, their plain versions for
-    CPU tensors. It raises ValueError, on every device, for shapes the
-    kernels lack (n_obs != 3, or (n_state, n_shock) not in cuda_dsge.SIZES)
-    and for the Riccati filter. "plain" always runs the bl_* functions
-    above, Chandrasekhar or (use_chand_recursion=False) Riccati. The JAX
-    package's names are taken too: "pallas" is "kernel" and "xla" is
-    "plain".
+    likelihood_backend "plain" (the default, as the JAX package's "xla" is
+    its default) runs the bl_* functions above, Chandrasekhar or
+    (use_chand_recursion=False) Riccati, for any shape: a model the JAX
+    package's LinearDSGE takes with its defaults runs here unchanged.
+    "kernel" goes through ops/cuda_dsge.py: the hand-written CUDA kernels
+    for CUDA tensors, their plain versions for CPU tensors. It raises
+    ValueError, on every device, outside the kernels' domain (n_obs 3,
+    1 <= n_state <= 8, 1 <= n_shock <= 8, the TPU kernels' own) and for the
+    Riccati filter; models in the domain pass it explicitly, as
+    an_schorfheide() does. The JAX package's names are taken too: "pallas"
+    is "kernel" and "xla" is "plain".
 
     Estimate a DSGE model with smc(model.loglike_batched, ...,
     batched=True). `loglike` evaluates one theta; it is not written for
@@ -257,7 +260,7 @@ class LinearDSGE:
     def __init__(self, parameters: List, system_fn: Callable,
                  measurement_fn: Callable, n_shocks: int,
                  shock_cov_fn: Callable, use_chand_recursion: bool = True,
-                 likelihood_backend: str = "kernel", mesh=None):
+                 likelihood_backend: str = "plain", mesh=None):
         if likelihood_backend not in BACKENDS:
             raise ValueError("likelihood_backend must be one of "
                              f"{tuple(BACKENDS)}")

@@ -13,6 +13,7 @@ import torch
 
 from smc_tpu_torch.distributions import Normal
 from smc_tpu_torch.params import Parameter, parameter
+from smc_tpu_torch.utils.misc import DeviceCopies
 
 _LOG_2PI = 1.8378770664093453
 
@@ -36,14 +37,16 @@ def generate_regression_data(n: int = 100, seed: int = 1793,
 
 
 def make_regression_loglike(x: np.ndarray, sigma2: float = 1.0):
-    """loglike(theta, data) for theta [P] or a batch [N, P] (then [N])."""
+    """loglike(theta, data) for theta [P] or a batch [N, P] (then [N]). The
+    data and x are copied to each device once (utils.misc.DeviceCopies), so
+    a call inside a CUDA graph capture copies nothing."""
     x64 = np.asarray(x, np.float64)
+    data_copies, x_copies = DeviceCopies(), DeviceCopies()
 
     def loglike(theta, data):
-        y = torch.as_tensor(np.asarray(data, np.float64)[0],
-                            device=theta.device)
+        y = data_copies.get(data, theta.device)[0]
         n = y.shape[0]
-        xt = torch.as_tensor(x64[:n], device=theta.device)
+        xt = x_copies.get(x64, theta.device)[:n]
         errors = y - theta[..., 0, None] - theta[..., 1, None] * xt
         return (-0.5 * n * (_LOG_2PI + math.log(sigma2))
                 - 0.5 * torch.sum(errors * errors, dim=-1) / sigma2)

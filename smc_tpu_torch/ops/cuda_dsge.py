@@ -5,16 +5,20 @@ Replaces smc_tpu/ops/pallas_dsge.py: `solve_linear_re` stands where
 where `pallas_kalman_chandrasekhar` (kernel `_kalman_kernel`) stood, and
 `dsge_loglike` composes the two as `pallas_dsge_loglike` did.
 
-Dispatch: a CPU tensor runs the plain PyTorch version (models/dsge.py
-`bl_*`); a CUDA tensor launches the kernel, or raises. Shapes without a
-kernel raise ValueError on every device. There is no fallback.
+The kernels' domain is the TPU kernels': n_obs == 3, 1 <= n_state <= 8,
+1 <= n_shock <= 8 (`SIZES`). Dispatch: a CPU tensor runs the plain PyTorch
+version (models/dsge.py `bl_*`); a CUDA tensor launches the kernel, or
+raises. Shapes outside the domain raise ValueError on every device. There
+is no fallback. The card's kernels come in one library per n_state
+(csrc/dsge_sizes.cuh), built by nvcc at its first use.
 `LAUNCHES` counts kernel launches, one per call that reaches the GPU. A
 call inside a CUDA graph capture launches nothing; smc()'s fused recursion
 adds the captured launches to `LAUNCHES` once per replay.
 
 The kernels (csrc/dsge_kernels.cu, bodies in csrc/dsge_particle.cuh) run
 in native f64 with a group of G lanes per particle: G = 8 for the RE solve,
-G = 2 for the Kalman filter (smc::kReLanes, smc::kKalmanLanes). Lane r of a
+G = 2 for the Kalman filter up to n_state 6 and 4 from 7 (smc::kReLanes,
+smc::kalman_lanes). Lane r of a
 group keeps rows r, r + G, ... of every matrix of its particle; a product
 reads the other rows from the group's tile in shared memory after a
 __syncwarp. Pivot choice,
@@ -35,7 +39,8 @@ particle (8 doubling steps, 80 Chandrasekhar steps), ~61 us, against
 scheduler and the RE carry spilling; G lanes per particle give G times the
 warps and a carry of RPL = ceil(n/G) rows per lane. The Kalman filter's 3x3
 work (F, M, the innovation solves) is done by every lane of a group, so it
-takes two lanes, the fewest that double the warps; F's adjugate and 1/det
+takes two lanes, the fewest that double the warps (four from n_state 7,
+where two would hold four rows each); F's adjugate and 1/det
 are made once per F and serve both of the solves that use it. PERF.md holds
 the measured times.
 """
@@ -46,31 +51,35 @@ import ctypes
 
 import torch
 
+from smc_tpu_torch import _build
 from smc_tpu_torch.models.dsge import (bl_solve_linear_re,
                                        bl_kalman_loglike_chandrasekhar)
 
 LAUNCHES = {"re": 0, "kalman": 0}
 
-# (n_state, n_shock) pairs the kernels are instantiated for: An-Schorfheide
-# and the 3-state test system
-SIZES = ((6, 3), (3, 3))
+# (n_state, n_shock) pairs the kernels are instantiated for: the domain of
+# the TPU kernels they replace (smc_tpu/ops/pallas_dsge.py), n_obs 3, as
+# the build sets it
+MAX_STATE = MAX_SHOCK = _build.DSGE_MAX_DIM
+SIZES = tuple((s, k) for s in range(1, MAX_STATE + 1)
+              for k in range(1, MAX_SHOCK + 1))
 N_OBS = 3
 # dynamic shared memory a block may use on Hopper (the launcher raises the
 # kernel's limit above the default 48 KB when it needs to)
 _MAX_SMEM = 227 * 1024
 
-_lib = None
-_prepared = set()
+_libs = {}          # n_state -> library
+_prepared = set()   # (n_state, device index)
 
 
-def _library(device: torch.device):
-    """The kernel library, loaded once; every kernel's shared-memory limit
-    raised to _MAX_SMEM once per device, before its first launch (so no
-    launch, and none inside a CUDA graph capture, sets an attribute)."""
-    global _lib
-    if _lib is None:
-        from smc_tpu_torch import _build
-        lib = ctypes.CDLL(str(_build.build_cuda_library("dsge")))
+def _library(device: torch.device, n_s: int):
+    """The kernel library of n_state n_s, built and loaded at its first use;
+    every kernel's shared-memory limit raised to _MAX_SMEM once per device,
+    before its first launch (so no launch, and none inside a CUDA graph
+    capture, sets an attribute)."""
+    lib = _libs.get(n_s)
+    if lib is None:
+        lib = ctypes.CDLL(str(_build.build_cuda_library(f"dsge_ns{n_s}")))
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.smc_re_solve.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
                                      ctypes.c_double, P]
@@ -82,14 +91,14 @@ def _library(device: torch.device):
         lib.smc_kalman_smem_bytes.restype = L
         lib.smc_dsge_prepare.argtypes = [I]
         lib.smc_dsge_prepare.restype = I
-        _lib = lib
-    if device.index not in _prepared:
+        _libs[n_s] = lib
+    if (n_s, device.index) not in _prepared:
         with torch.cuda.device(device):
-            rc = _lib.smc_dsge_prepare(_MAX_SMEM)
+            rc = lib.smc_dsge_prepare(_MAX_SMEM)
         if rc != 0:
             raise RuntimeError(f"DSGE kernel set-up failed (CUDA error {rc})")
-        _prepared.add(device.index)
-    return _lib
+        _prepared.add((n_s, device.index))
+    return lib
 
 
 def _check(name, t, shape, device, dtype=torch.float64):
@@ -117,7 +126,8 @@ def _sizes(n_s, n_k, n_o=N_OBS):
     the CPU's plain path serves only what the card's kernels serve."""
     if (n_s, n_k) not in SIZES:
         raise ValueError(f"no kernel instantiated for n_state={n_s}, "
-                         f"n_shock={n_k}; have {SIZES}")
+                         f"n_shock={n_k}; the kernels take 1 <= n_state <= "
+                         f"{MAX_STATE} and 1 <= n_shock <= {MAX_SHOCK}")
     if n_o != N_OBS:
         raise ValueError(f"the Kalman kernel needs n_obs == {N_OBS}, not "
                          f"{n_o}")
@@ -146,7 +156,7 @@ def solve_linear_re(A, B, C, D, n_iter: int = 16, tol: float = 1e-8):
     ok = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return X, M, ok
-    lib = _library(dev)
+    lib = _library(dev, n_s)
     with torch.cuda.device(dev):
         rc = lib.smc_re_solve(
             n_s, n_k, A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
@@ -183,7 +193,7 @@ def kalman_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H, data, ok=None,
     out = torch.empty(n, dtype=torch.float64, device=dev)
     if n == 0:
         return out
-    lib = _library(dev)
+    lib = _library(dev, n_s)
     if lib.smc_kalman_smem_bytes(n_s, n_t) > _MAX_SMEM:
         raise ValueError(f"T={n_t} observations and the group tiles do not "
                          "fit the kernel's shared memory")

@@ -101,6 +101,33 @@ def test_ragged_n_kernels_match_plain(dev, n, part):
         assert_loglh_close(ll.cpu().numpy(), want.cpu().numpy())
 
 
+@pytest.mark.parametrize("shape", [(1, 1), (4, 2), (7, 3), (8, 8)])
+def test_kernels_across_the_domain_match_plain(dev, shape):
+    """Both kernels at shapes of their domain on 257 synthetic systems
+    (ragged warps) against their plain versions, and a NaN particle that
+    leaves its neighbours bitwise alone."""
+    from torch_parity import synthetic_system
+    sys_np, data = synthetic_system(*shape, 257, n_t=40)
+    A, B, C, D, Q, Z, d, H = (torch.as_tensor(x, device=dev)
+                              for x in sys_np)
+    data = torch.as_tensor(data, device=dev)
+    X, M, ok = cuda_dsge.solve_linear_re(A, B, C, D)
+    Xp, Mp, okp = bl_solve_linear_re(A, B, C, D)
+    assert torch.equal(ok, okp)
+    for a, b in ((X, Xp), (M, Mp)):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-10, atol=1e-12)
+    ll = cuda_dsge.dsge_loglike(A, B, C, D, Q, Z, d, H, data)
+    assert_loglh_close(ll.cpu().numpy(),
+                       bl_dsge_loglike(A, B, C, D, Q, Z, d, H,
+                                       data).cpu().numpy())
+    A_nan = A.clone()
+    A_nan[:, :, 100] = float("nan")
+    ll2 = cuda_dsge.dsge_loglike(A_nan, B, C, D, Q, Z, d, H, data)
+    keep = torch.arange(257, device=dev) != 100
+    assert ll2[100].item() == float("-inf")
+    assert torch.equal(ll2[keep], ll[keep])
+
+
 def _schedule_cloud(n, scale, seed):
     rng = np.random.default_rng(seed)
     w = np.exp(0.3 * rng.standard_normal(n))

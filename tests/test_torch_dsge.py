@@ -27,7 +27,8 @@ from smc_tpu_torch.models.dsge import (bl_solve_linear_re,
                                        bl_kalman_loglike_chandrasekhar)
 from smc_tpu_torch.ops import cuda_dsge
 
-from torch_parity import as_prior_draws, assert_loglh_close, tiny_system
+from torch_parity import (as_prior_draws, assert_loglh_close, synthetic_model,
+                          synthetic_system, tiny_system)
 
 
 def _bl(x):
@@ -116,6 +117,56 @@ def test_tiny_system_matches_pallas_interpret():
     got = cuda_dsge.dsge_loglike(*(torch.as_tensor(a) for a in args))
     assert np.isfinite(np.asarray(want)).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-7)
+
+
+# shapes across the kernels' domain (n_obs 3, 1 <= n_state, n_shock <= 8):
+# the edges, n_shock above n_state, the Kalman filter's 4-lane groups
+DOMAIN_SHAPES = [(1, 1), (2, 1), (4, 2), (5, 5), (7, 3), (8, 8)]
+
+
+@pytest.mark.parametrize("shape", DOMAIN_SHAPES)
+def test_kernel_backend_across_the_domain_matches_jax(shape):
+    """A LinearDSGE on "pallas" (the port's "kernel") at a shape of the
+    domain, on synthetic systems: its wrappers' X, M and ok, and the model's
+    likelihood, against the JAX package's bl_* path, to the AS tests'
+    tolerances."""
+    sys_np, data = synthetic_system(*shape, 48, n_t=12)
+    A, B, C, D, Q, Z, d, H = (jnp.asarray(x) for x in sys_np)
+    Xj, Mj, okj = jax.jit(j_re)(A, B, C, D)
+    want = np.where(okj, jax.jit(j_kalman)(Xj, Mj, Q, Z, d, H,
+                                           jnp.asarray(data)), -np.inf)
+    X, M, ok = cuda_dsge.solve_linear_re(
+        *(torch.as_tensor(x) for x in sys_np[:4]))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(okj))
+    assert bool(ok.all())
+    np.testing.assert_allclose(X.numpy(), np.asarray(Xj), rtol=1e-10,
+                               atol=1e-12)
+    np.testing.assert_allclose(M.numpy(), np.asarray(Mj), rtol=1e-10,
+                               atol=1e-12)
+    th = torch.arange(48, dtype=torch.float64)[:, None]
+    for backend in ("pallas", "kernel"):
+        model = synthetic_model(sys_np, "cpu", likelihood_backend=backend)
+        assert model.likelihood_backend == "kernel"
+        assert_loglh_close(model.loglike_batched(th, data).numpy(), want)
+
+
+@pytest.mark.parametrize("shape, n_obs, match", [
+    ((9, 3), 3, "no kernel"), ((3, 9), 3, "no kernel"), ((4, 2), 2, "n_obs")])
+def test_shapes_outside_the_domain_raise(shape, n_obs, match):
+    """n_state or n_shock above 8, or n_obs != 3, under "kernel": ValueError
+    on the CPU as on the card, no fallback to the plain path."""
+    sys_np, data = synthetic_system(*shape, 4, n_t=6)
+    if n_obs != 3:
+        sys_np = (*sys_np[:5], sys_np[5][:n_obs].copy(),
+                  sys_np[6][:n_obs].copy(), sys_np[7][:n_obs, :n_obs].copy())
+        data = data[:n_obs]
+    model = synthetic_model(sys_np, "cpu")
+    with pytest.raises(ValueError, match=match):
+        model.loglike_batched(torch.arange(4, dtype=torch.float64)[:, None],
+                              data)
+    with pytest.raises(ValueError, match=match):
+        cuda_dsge.dsge_loglike(*(torch.as_tensor(x) for x in sys_np),
+                               torch.as_tensor(data))
 
 
 def test_nan_particle_leaves_others_unchanged(as_case):

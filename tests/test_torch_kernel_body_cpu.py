@@ -1,8 +1,9 @@
 """The CUDA kernels' warp bodies (csrc/dsge_particle.cuh), compiled for the
-host with g++ through csrc/dsge_cpu.cpp, against the plain PyTorch versions.
+host with g++ through csrc/dsge_cpu.cpp (one library per (n_state,
+n_shock), built at its first use), against the plain PyTorch versions.
 The host build runs the same group layout as the card (8 lanes per particle
-in the RE solve, 2 in the Kalman filter, 32 lanes per warp, the tile
-exchanges phase by phase), so this is
+in the RE solve, 2 in the Kalman filter up to n_state 6 and 4 from 7, 32
+lanes per warp, the tile exchanges phase by phase), so this is
 the CPU's view of the kernels' arithmetic, pivoting and warp-wide exits; the
 kernels themselves run only on the card (chip_smoke.py). The Jacobi eigh
 body (csrc/eigh_jacobi.cuh, through csrc/eigh_cpu.cpp, each matrix's warp
@@ -23,21 +24,43 @@ from smc_tpu_torch.models import as_dsge as tas
 from smc_tpu_torch.models.dsge import (bl_solve_linear_re,
                                        bl_kalman_loglike_chandrasekhar)
 
-from torch_parity import as_prior_draws, assert_loglh_close, tiny_system
+from torch_parity import (as_prior_draws, assert_loglh_close, normwise_rel,
+                          synthetic_system, tiny_system)
+
+
+class _BodyLibraries:
+    """The host builds of the kernel bodies, one library per (n_state,
+    n_shock), each built and loaded once at its first call; a call goes to
+    the library of its shape."""
+
+    def __init__(self):
+        self._libs = {}
+
+    def _get(self, n_s, n_k):
+        if (n_s, n_k) not in self._libs:
+            lib = ctypes.CDLL(str(_build.build_cpu_library(n_s, n_k)))
+            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.smc_re_solve_cpu.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
+                                             ctypes.c_double]
+            lib.smc_re_solve_cpu.restype = I
+            lib.smc_kalman_cpu.argtypes = [I, I, P, P, P, P, P, P, P, I, P,
+                                           L, I, P]
+            lib.smc_kalman_cpu.restype = I
+            self._libs[n_s, n_k] = lib
+        return self._libs[n_s, n_k]
+
+    def smc_re_solve_cpu(self, n_s, n_k, *args):
+        return self._get(n_s, n_k).smc_re_solve_cpu(n_s, n_k, *args)
+
+    def smc_kalman_cpu(self, n_s, n_k, *args):
+        return self._get(n_s, n_k).smc_kalman_cpu(n_s, n_k, *args)
 
 
 @pytest.fixture(scope="module")
 def lib():
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the host version of the kernel bodies")
-    lib = ctypes.CDLL(str(_build.build_cpu_library()))
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.smc_re_solve_cpu.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
-                                     ctypes.c_double]
-    lib.smc_re_solve_cpu.restype = I
-    lib.smc_kalman_cpu.argtypes = [I, I, P, P, P, P, P, P, P, I, P, L, I, P]
-    lib.smc_kalman_cpu.restype = I
-    return lib
+    return _BodyLibraries()
 
 
 def _re(lib, A, B, C, D):
@@ -202,6 +225,43 @@ def test_tied_pivot_magnitudes_follow_the_serial_rule(lib):
     assert torch.equal(ok, okp)
     np.testing.assert_allclose(X.numpy(), Xp.numpy(), rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(M.numpy(), Mp.numpy(), rtol=1e-10, atol=1e-12)
+
+
+# shapes where the group geometry changes: n_shock below n_state, the
+# Kalman filter's 4 lanes of 2 rows from n_state 7, the widest RE tile
+@pytest.mark.parametrize("shape", [(4, 2), (7, 3), (8, 8)])
+def test_bodies_across_the_domain_match_plain(lib, shape):
+    """Both bodies at a shape of the domain on synthetic systems (41
+    particles: ragged RE and Kalman warps) against the plain versions, and
+    a NaN lane that leaves its neighbours bitwise alone."""
+    n_s, n_k = shape
+    sys_np, data = synthetic_system(n_s, n_k, 41, n_t=12)
+    A, B, C, D, Q, Z, d, H = (torch.as_tensor(x) for x in sys_np)
+    data = torch.as_tensor(data)
+    X, M, ok = _re(lib, A, B, C, D)
+    Xp, Mp, okp = bl_solve_linear_re(A, B, C, D)
+    assert torch.equal(ok, okp) and bool(ok.all())
+    np.testing.assert_allclose(X.numpy(), Xp.numpy(), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(M.numpy(), Mp.numpy(), rtol=1e-10, atol=1e-12)
+    assert normwise_rel(X, Xp).max().item() <= 1e-10
+    ll = _kalman(lib, X, M, Q, Z, d, H, data, ok)
+    want = bl_kalman_loglike_chandrasekhar(Xp, Mp, Q, Z, d, H, data)
+    assert_loglh_close(ll.numpy(), want.numpy())
+    j = 18
+    A_nan = A.clone()
+    A_nan[:, :, j] = float("nan")
+    X2, M2, ok2 = _re(lib, A_nan, B, C, D)
+    ll2 = _kalman(lib, X2, M2, Q, Z, d, H, data, ok2)
+    keep = torch.arange(41) != j
+    assert not bool(ok2[j]) and ll2[j].item() == float("-inf")
+    assert torch.equal(X2[..., keep], X[..., keep])
+    assert torch.equal(M2[..., keep], M[..., keep])
+    assert torch.equal(ll2[keep], ll[keep])
+    Q_nan = Q.clone()
+    Q_nan[:, :, j] = float("nan")
+    ll3 = _kalman(lib, X, M, Q_nan, Z, d, H, data, ok)
+    assert ll3[j].item() == float("-inf")
+    assert torch.equal(ll3[keep], ll[keep])
 
 
 @pytest.mark.parametrize("gap", [-1e-6, -1e-11, 1e-11, 1e-6])

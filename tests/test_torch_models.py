@@ -335,8 +335,11 @@ def test_generate_as_data_is_torchs_stream():
 
 
 def test_kernel_backend_raises_for_shapes_without_a_kernel():
-    """No fallback from "kernel" to "plain": n_obs = 2 (AS-2obs) and
-    n_state = 37 (SW) raise ValueError on the CPU as on the card."""
+    """No fallback from "kernel" to "plain": n_obs = 2 (AS-2obs), n_state =
+    37 (SW) and the Riccati filter raise ValueError on the CPU as on the
+    card. LinearDSGE's default backend is "plain", the JAX package's
+    "xla": with the JAX package's default arguments, the Riccati filter
+    included, the port gives the JAX model's likelihoods."""
     th2 = _t(as_prior_draws(4, seed=2))
     as2 = tdsge.LinearDSGE(tas.an_schorfheide_parameters(), tas._system,
                            tas._measurement_2obs, 3, tas._shock_cov,
@@ -350,4 +353,18 @@ def test_kernel_backend_raises_for_shapes_without_a_kernel():
     with pytest.raises(ValueError, match="Riccati"):
         tdsge.LinearDSGE(tas.an_schorfheide_parameters(), tas._system,
                          tas._measurement, 3, tas._shock_cov,
-                         use_chand_recursion=False)
+                         use_chand_recursion=False,
+                         likelihood_backend="kernel")
+    model = tdsge.LinearDSGE(tas.an_schorfheide_parameters(), tas._system,
+                             tas._measurement, 3, tas._shock_cov,
+                             use_chand_recursion=False)
+    jmodel = jdsge.LinearDSGE(jas.an_schorfheide_parameters(), jas._system,
+                              jas._measurement, 3, jas._shock_cov,
+                              use_chand_recursion=False)
+    assert model.likelihood_backend == "plain"
+    assert jmodel.likelihood_backend == "xla"
+    data = tas.load_as_data()[:, :40]
+    got = model.loglike_batched(th2, data).numpy()
+    want = np.asarray(jmodel.loglike_batched(_j(th2.numpy()), data))
+    assert np.isfinite(want).any()
+    assert_loglh_close(got, want)

@@ -434,3 +434,37 @@ def test_tempered_update_copies_each_data_array_once(monkeypatch):
                       log_prob_old_data=old.log_mdd, **kw)
     assert sorted(copies) == [False, True]
     assert calls.count(True) >= 4 and calls.count(False) >= 4
+
+
+def test_regression_likelihood_copies_its_data_once(monkeypatch):
+    """The regression model holds its data and x on the device after its
+    first call: no later call (one inside a CUDA graph capture, under the
+    fused driver on a card) makes a tensor from a host array."""
+    from smc_tpu_torch.models import regression as treg
+    y, x = treg.generate_regression_data(n=100, seed=1793)
+    ll = treg.make_regression_loglike(x)
+    copies, inside = [], []
+    as_tensor = torch.as_tensor
+
+    def counting(a, *args, **kwargs):
+        if inside and isinstance(a, np.ndarray):
+            copies.append(a)
+        return as_tensor(a, *args, **kwargs)
+
+    def counted(th, d):
+        inside.append(True)
+        try:
+            return ll(th, d)
+        finally:
+            inside.pop()
+
+    monkeypatch.setattr(treg.torch, "as_tensor", counting)
+    th = torch.as_tensor([[1.0, 1.0], [0.5, 2.0]])
+    first = counted(th, y)
+    assert len(copies) == 2
+    copies.clear()
+    assert torch.equal(counted(th, y), first)
+    res = smc_tpu_torch.smc(counted, treg.regression_parameters(), y,
+                            n_parts=64, n_phi=5, verbose="none",
+                            device="cpu")
+    assert np.isfinite(res.log_mdd) and not copies

@@ -9,10 +9,11 @@ two-part launch did: unpack an older commit with `git archive` into a
 gitignored directory and pass its smc_tpu_torch/csrc. With --two-part its
 launcher is this checkout's, smc_eigh(k0, n0, k1, n1, a, lam, u, work,
 stream) (a variant of this kernel, in a gitignored copy). The other tree is
-built with nvcc into smc_tpu_torch/_build/ (keyed by a hash of its files);
-this checkout's through smc_tpu_torch._build. Both are launched through
-the same bare ctypes call on outputs allocated once, so a back-to-back
-time at a small k compares the kernels and not their Python wrappers.
+built with nvcc into smc_tpu_torch/_build/ (keyed by a hash of its files;
+tests/torch_turns.py); this checkout's through smc_tpu_torch._build. Both
+are launched through the same bare ctypes call on outputs allocated once,
+so a back-to-back time at a small k compares the kernels and not their
+Python wrappers.
 
 Per single SPD matrix at each k of KS: the mean ms of back-to-back calls
 (chip_smoke.cuda_ms) and of calls replayed from a CUDA graph
@@ -26,15 +27,15 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+
+from torch_turns import build_tree, turns  # noqa: E402
 
 KS = (3, 12, 13, 36, 64, 100, 128)
 STAGES = (("AS", 1, 13), ("linear", 3, 3), ("SW", 3, 12))
@@ -47,22 +48,8 @@ def build_other(csrc: Path, two_part: bool):
     from smc_tpu_torch import _build
     if csrc == _build.CSRC:
         out = _build.build_cuda_library("eigh")
-        return _launcher(ctypes.CDLL(str(out)), csrc, True), out
-    h = hashlib.sha256()
-    for f in sorted(csrc.iterdir()):
-        if f.is_file():
-            h.update(f.name.encode() + f.read_bytes())
-    out = _build.BUILD_DIR / f"libsmc_eigh_other_{h.hexdigest()[:16]}.so"
-    if not out.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I",
-                               str(csrc), "-o", str(out),
-                               str(csrc / "eigh_kernel.cu")],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"build of the other kernel failed:\n"
-                               f"{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    else:
+        out = build_tree(csrc, "eigh_kernel.cu", "libsmc_eigh_other")
     return _launcher(ctypes.CDLL(str(out)), csrc, two_part), out
 
 
@@ -115,16 +102,6 @@ def spd(k, n, seed, dev):
     import torch
     x = np.random.default_rng(seed).standard_normal((n, k, k + 3))
     return torch.as_tensor(x @ x.transpose(0, 2, 1) / (k + 3), device=dev)
-
-
-def turns(fns, reps):
-    """{name: [back-to-back ms, graph ms] per turn} for fns = {"other": f,
-    "this": g}, in the order other, this, this, other."""
-    from chip_smoke import cuda_ms, graph_ms
-    out = {name: [] for name in fns}
-    for name in ("other", "this", "this", "other"):
-        out[name].append((cuda_ms(fns[name], reps), graph_ms(fns[name], reps)))
-    return out
 
 
 def main(argv=None) -> int:

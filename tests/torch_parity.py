@@ -1,5 +1,6 @@
 """Shared inputs and tolerances for the smc_tpu_torch parity tests
-(tests/test_torch_*.py). Not a test module itself."""
+(tests/test_torch_*.py) and chip_smoke.py. Imports numpy alone at the top
+(never jax). Not a test module itself."""
 
 import numpy as np
 
@@ -98,3 +99,62 @@ class StubMesh:
 
     def get_group(self, dim):
         return self._group
+
+
+# the length of the observed series synthetic_system draws from
+SYNTHETIC_T = 80
+
+
+def synthetic_system(n_s, n_k, n, seed=5, n_t=SYNTHETIC_T):
+    """n stable linear-RE systems at (n_s, n_k) with three observables,
+    drawn with numpy from `seed` (the 3-state system of the kernel tests,
+    widened): X = diag(rho) + E, rho ~ U(0.2, 0.7), and B = I + E', a
+    forward-looking C, A = -(B X + C X^2), so that X solves the system;
+    D = -(I + 0.3 G), Q = S S'/n_k + I/2, Z = 1.5 I + 0.3 G, H = 0.1 I, E, E'
+    and C of scale 0.1/sqrt(n_s). Returns the batch-last float64 arrays
+    (A, B, C, D, Q, Z, d, H) and data [3, n_t], the first n_t observations
+    of a standard normal series drawn from `seed`."""
+    rng = np.random.default_rng([seed, n_s, n_k])
+    s = 0.1 / np.sqrt(n_s)
+    g = lambda *shape: rng.standard_normal((n, *shape))
+    eye = np.eye(n_s)
+    X = rng.uniform(0.2, 0.7, (n, n_s, 1)) * eye + s * g(n_s, n_s)
+    B = eye + s * g(n_s, n_s)
+    C = s * g(n_s, n_s)
+    A = -(B @ X + C @ X @ X)
+    D = -(np.eye(n_s, n_k) + 0.3 * g(n_s, n_k))
+    S = g(n_k, n_k)
+    Q = S @ S.transpose(0, 2, 1) / n_k + 0.5 * np.eye(n_k)
+    Z = 1.5 * np.eye(3, n_s) + 0.3 * g(3, n_s)
+    d = 0.1 * g(3)
+    H = np.broadcast_to(0.1 * np.eye(3), (n, 3, 3))
+    last = lambda x: np.ascontiguousarray(np.moveaxis(x, 0, -1))
+    data = np.random.default_rng(seed).standard_normal((3, SYNTHETIC_T))
+    return ((last(A), last(B), last(C), last(D), last(Q), last(Z), last(d),
+             last(H)), np.ascontiguousarray(data[:, :n_t]))
+
+
+def synthetic_model(sys_np, device, likelihood_backend="kernel"):
+    """A LinearDSGE (on the "kernel" backend unless told otherwise) whose
+    particle j (theta [N, 1] holding j) is system j of sys_np: a user's own
+    small model, through the entry point a user calls."""
+    import torch
+    from smc_tpu_torch.distributions import Uniform
+    from smc_tpu_torch.models.dsge import LinearDSGE
+    from smc_tpu_torch.params import parameter
+    A, B, C, D, Q, Z, d, H = (torch.as_tensor(x, device=device)
+                              for x in sys_np)
+    pick = lambda x, th: x[..., th[:, 0].long()].contiguous()
+    return LinearDSGE(
+        [parameter("j", 0.0, prior=Uniform(0.0, float(A.shape[-1])))],
+        lambda th: tuple(pick(x, th) for x in (A, B, C, D)),
+        lambda th: (pick(d, th), pick(Z, th), pick(H, th)), D.shape[1],
+        lambda th: pick(Q, th), likelihood_backend=likelihood_backend)
+
+
+def normwise_rel(a, b):
+    """Per particle max|a-b| / max|b| over a batch-last [r, c, N] pair."""
+    import torch
+    num = (a - b).abs().amax(dim=(0, 1))
+    den = b.abs().amax(dim=(0, 1)).clamp(min=1e-300)
+    return num / den
