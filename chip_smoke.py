@@ -9,8 +9,10 @@ smc_tpu_torch.smc on the card, then the rest of smc()'s paths:
       chain kernel against its plain version;
   (d) checkpoint and resume of the linear fixture, bitwise;
   (e) tempered update and bridge distribution from half the linear data;
-  (f) Smets-Wouters at 4,096 particles (the reference's production model);
-  (g) An-Schorfheide on two observables at 16,384 particles;
+  (f) Smets-Wouters at 4,096 particles (the reference's production model)
+      on the general-shape DSGE kernels;
+  (g) An-Schorfheide on two observables at 16,384 particles, on the same
+      kernels;
   (h) CAPM at five seeds;
   (i) the particle mesh: AS-16k under smc(mesh=particle_mesh()) on one
       NCCL rank (fused, and once on the host loop), on two gloo ranks
@@ -27,7 +29,12 @@ smc_tpu_torch.smc on the card, then the rest of smc()'s paths:
 Before the main path, the shape phase holds both DSGE kernels at every
 (n_state, n_shock) of their domain (1..8 each, n_obs 3) against their plain
 versions on synthetic systems, each shape's likelihood first called once
-through a LinearDSGE (its launches are the kernels line's).
+through a LinearDSGE (its launches are the kernels line's). The general
+phase then holds the general-shape DSGE kernels (the "plain" backend's on
+the card: Smets-Wouters, AS-2obs) against their plain versions at SW's and
+AS-2obs's shapes and at synthetic shapes with 1, 2, 3 and 7 observables,
+and times one SW likelihood call at 12,000 draws; their launches in the
+kernels line are phase (f)'s.
 
 The main path and phases (a)-(c), (e)-(h) and the NCCL mesh run the fused
 recursion, smc()'s automatic choice at verbose="none": each stage a replay
@@ -136,7 +143,10 @@ def ptxas_lines(log: str):
         if m:
             k = re.search(r"(re_kernel|kalman_kernel)ILi(\d+)ELi(\d+)E",
                           m.group(1))
+            gen = re.search(r"(re_general_kernel|kalman_general_kernel)"
+                            r"ILi(\d+)E", m.group(1))
             name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else
+                    f"{gen.group(1)}<{gen.group(2)}>" if gen else
                     "eigh_kernel" if "eigh_kernel" in m.group(1) else
                     "metropolis_kernel" if "metropolis_kernel" in m.group(1)
                     else m.group(1))
@@ -226,8 +236,9 @@ def once_ms(fn) -> float:
 
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): f64 on the
-# FMA pipes and HBM3 bandwidth
+# FMA pipes, f64 matrix products on the tensor cores (DMMA), HBM3 bandwidth
 PEAK_F64 = 33.5e12          # flop/s
+PEAK_F64_MMA = 67e12        # flop/s
 PEAK_BYTES = 3.35e12        # bytes/s
 # instructions issued: 4 schedulers per SM, one warp instruction (32
 # threads) each per clock, x 132 SMs x 1.98 GHz boost; the peak of a stream
@@ -235,23 +246,42 @@ PEAK_BYTES = 3.35e12        # bytes/s
 PEAK_ISSUE = 132 * 4 * 32 * 1.98e9  # thread-instructions/s
 
 
+# flop counts are pairs (matrix-product flop, other flop): the products of
+# two matrices can run on the tensor cores (PEAK_F64_MMA); the rest
+# (elimination, factors, matrix-vector products, elementwise work) on the
+# FMA pipes (PEAK_F64)
+
+
+def _f(prod=0, other=0):
+    return (prod, other)
+
+
+def _add(*fs):
+    return tuple(map(sum, zip(*fs)))
+
+
+def _mul(c, f):
+    return (c * f[0], c * f[1])
+
+
 def gj_flops(n, w):
     """Gauss-Jordan on n x w: per pivot, w-1-k normalizing multiplies and
-    (n-1)(w-1-k) eliminating FMAs (2 flop each)."""
-    return sum((w - 1 - k) * (1 + 2 * (n - 1)) for k in range(n))
+    (n-1)(w-1-k) eliminating FMAs (2 flop each); none a matrix product."""
+    return _f(other=sum((w - 1 - k) * (1 + 2 * (n - 1)) for k in range(n)))
 
 
 def re_flops(ns, nk, cr_iters):
     """flop of the RE solve of one particle that runs `cr_iters` cyclic-
     reduction iterations (the work of dsge_particle.cuh re_solve_warp)."""
-    prod = 2 * ns ** 3
-    per_iter = gj_flops(ns, 3 * ns) + 4 * prod + 4 * ns * ns
-    spectral = 12 * (prod + 3 * ns * ns) + 2 * ns * ns
-    tail = (gj_flops(ns, 2 * ns) + prod + ns * ns        # X, then B + C X
-            + gj_flops(ns, 2 * ns + nk)                   # M and Fwd
-            + 3 * prod + 2 * ns * ns                      # residual
-            + 2 * spectral)
-    return cr_iters * per_iter + tail
+    prod = _f(prod=2 * ns ** 3)
+    sq = lambda c: _f(other=c * ns * ns)
+    per_iter = _add(gj_flops(ns, 3 * ns), _mul(4, prod), sq(4))
+    spectral = _add(_mul(12, _add(prod, sq(3))), sq(2))
+    tail = _add(gj_flops(ns, 2 * ns), prod, sq(1),       # X, then B + C X
+                gj_flops(ns, 2 * ns + nk),                # M and Fwd
+                _mul(3, prod), sq(2),                     # residual
+                _mul(2, spectral))
+    return _add(_mul(cr_iters, per_iter), tail)
 
 
 def psd_solve_flops(no, m):
@@ -266,20 +296,26 @@ def kalman_flops(ns, nk, lyap_iters, n_t, no=3):
     """flop of the Kalman filter of one ok particle (kalman_warp, or the
     plain Chandrasekhar filter at any n_obs): R Q R', the doubling steps,
     the set-up of F, K, M and n_t Chandrasekhar steps."""
-    setup = 2 * ns * nk * nk + 2 * ns * ns * nk
-    per_doubling = 3 * 2 * ns ** 3 + ns * ns
-    first = (2 * ns * ns * no * 2 + 2 * no * no * ns
-             + (60 if no == 3 else psd_solve_flops(no, no)))
-    per_step = (2 * no * no * ns + 2 * no * ns + 2 * no       # Z W, Z s, v
-                + psd_solve_flops(no, 1 + no) + 10            # solve, quad
-                + 2 * ns * ns + 2 * ns * no + ns              # s
-                + 2 * no ** 3 + 2 * ns * no * no              # M W'Z', W M W'Z'
-                + 2 * ns * ns * no + 2 * ns * no * no         # new W
-                + 2 * ns * ns * no + ns * no                  # new K
-                + 2 * no * no * ns + no * no + 6              # new F
-                + psd_solve_flops(no, no) + 2 * 2 * no ** 3 + no * no + 6
-                + 8)                                          # new M, guards
-    return setup + lyap_iters * per_doubling + first + n_t * per_step
+    setup = _f(prod=2 * ns * nk * nk + 2 * ns * ns * nk)
+    per_doubling = _f(prod=3 * 2 * ns ** 3, other=ns * ns)
+    first = _f(prod=2 * ns * ns * no * 2 + 2 * no * no * ns,
+               other=60 if no == 3 else psd_solve_flops(no, no))
+    per_step = _f(
+        prod=(2 * no * no * ns                                # Z W
+              + 2 * no ** 3 + 2 * ns * no * no                # M W'Z', W M W'Z'
+              + 2 * ns * ns * no + 2 * ns * no * no           # new W
+              + 2 * ns * ns * no                              # new K
+              + 2 * no * no * ns                              # new F
+              + 2 * 2 * no ** 3),                             # new M
+        other=(2 * no * ns + 2 * no                           # Z s, v
+               + psd_solve_flops(no, 1 + no) + 10             # solve, quad
+               + 2 * ns * ns + 2 * ns * no + ns               # s
+               + ns * no                                      # new K
+               + no * no + 6                                  # new F
+               + psd_solve_flops(no, no) + no * no + 6
+               + 8))                                          # new M, guards
+    return _add(setup, _mul(lyap_iters, per_doubling), first,
+                _mul(n_t, per_step))
 
 
 def cr_iterations(A, B, C, n_iter=16):
@@ -329,9 +365,13 @@ def lyapunov_iterations(T, n_iter=30):
 
 
 def bound_ms(flop, nbytes):
-    """The least time for the work: the larger of flop over the f64 peak and
-    bytes over the memory rate, and which of the two sets it."""
-    t_ops, t_bytes = flop / PEAK_F64 * 1e3, nbytes / PEAK_BYTES * 1e3
+    """The least time for the work: the larger of the operations' time and
+    bytes over the memory rate, and which of the two sets it. flop is a
+    pair (matrix-product flop, other flop): the products at the tensor
+    cores' f64 peak, the rest at the FMA pipes', the two units running at
+    once (so the longer of the two times)."""
+    t_ops = max(flop[0] / PEAK_F64_MMA, flop[1] / PEAK_F64) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -457,9 +497,9 @@ def kernel_phase(dev):
     n_s, n_k = A.shape[0], D.shape[1]
     cr_it = cr_iterations(A, B, C)
     ly_it = lyapunov_iterations(X[..., ok])
-    re_flop = sum(re_flops(n_s, n_k, int(i)) for i in cr_it.tolist())
-    kal_flop = sum(kalman_flops(n_s, n_k, int(i), data.shape[1])
-                   for i in ly_it.tolist())
+    re_flop = _work_flop(cr_it, lambda i: re_flops(n_s, n_k, i))
+    kal_flop = _work_flop(ly_it, lambda i: kalman_flops(n_s, n_k, i,
+                                                        data.shape[1]))
     re_bytes = AS_N_PARTS * (8 * (3 * n_s * n_s + n_s * n_k)
                              + 8 * (n_s * n_s + n_s * n_k) + 1)
     kal_bytes = (AS_N_PARTS * (8 * (n_s * n_s + n_s * n_k + n_k * n_k
@@ -470,9 +510,9 @@ def kernel_phase(dev):
     print(f"# work: cyclic reduction {cr_it.double().mean().item():.4f} "
           f"iterations per particle (max {int(cr_it.max())}), doubling "
           f"{ly_it.double().mean().item():.4f} (max {int(ly_it.max())}) over "
-          f"{int(ok.sum())} ok particles; re {re_flop:.4e} flop "
+          f"{int(ok.sum())} ok particles; re {_flop_str(re_flop)} "
           f"{re_bytes} B, bound {re_bound:.4f} ms ({re_by}); kalman "
-          f"{kal_flop:.4e} flop {kal_bytes} B, bound {kal_bound:.4f} ms "
+          f"{_flop_str(kal_flop)} {kal_bytes} B, bound {kal_bound:.4f} ms "
           f"({kal_by})")
 
     # --- times at the main path's shapes -----------------------------------
@@ -514,8 +554,12 @@ def _work_flop(counts, per):
     """sum over particles of per(iterations), from the iteration counts."""
     import torch
     vals, reps = torch.unique(counts, return_counts=True)
-    return sum(per(int(v)) * int(r) for v, r in zip(vals.tolist(),
-                                                    reps.tolist()))
+    return _add(_f(), *(_mul(int(r), per(int(v)))
+                        for v, r in zip(vals.tolist(), reps.tolist())))
+
+
+def _flop_str(flop):
+    return f"{flop[0]:.4e} product + {flop[1]:.4e} other flop"
 
 
 def shape_phase(dev, ptxas):
@@ -636,7 +680,311 @@ def shape_phase(dev, ptxas):
           f"{len(spills)}")
     if spills:
         raise RuntimeError(f"ptxas reports spills: {spills}")
+    # the likelihood route's copy of the Kalman kernel's shared memory
+    # (ops/cuda_dsge.py kalman_smem_bytes) against the library's
+    off = [(n_s, n_t) for n_s in sorted({s for s, _ in cuda_dsge.SIZES})
+           for n_t in (0, 80, 7936, 9301)
+           if cuda_dsge._library(dev, n_s).smc_kalman_smem_bytes(n_s, n_t)
+           != cuda_dsge.kalman_smem_bytes(n_s, n_t)]
+    print(f"# shapes: the route's Kalman shared-memory sizes differ from "
+          f"the libraries' at {off}")
+    if off:
+        raise RuntimeError("ops/cuda_dsge.py kalman_smem_bytes is not the "
+                           "kernel's")
     return entries
+
+
+# --- the general-shape DSGE kernels -----------------------------------------
+# synthetic shapes of the general phase: n_state (both block sizes, SW's 37
+# and the domain's 64) by n_obs (the cofactor form at 3, Cholesky else), at
+# n_shock GEN_SHOCK, on GEN_N systems each
+GEN_STATES = (1, 9, 17, 37, 64)
+GEN_OBS = (1, 2, 3, 7)
+GEN_SHOCK = 3
+GEN_N = 2_048
+# one SW likelihood call at the reference's production size
+SW_LARGE_N = 12_000
+
+
+def loglh_errors(got, want, agree=None):
+    """Finite-pattern disagreements (outside the lanes where the RE solves
+    disagree, `agree` False), then over the lanes finite in both: within
+    BAND_NATS of the best the count, the largest relative and absolute
+    error, within TAIL_NATS the largest relative error."""
+    import torch
+    from torch_parity import BAND_NATS, TAIL_NATS
+    if agree is None:
+        agree = torch.ones_like(got, dtype=torch.bool)
+    pattern = int(((torch.isfinite(got) != torch.isfinite(want))
+                   & agree).sum())
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    best = want[fin].max()
+    band = fin & (want > best - BAND_NATS)
+    tail = fin & (want > best - TAIL_NATS)
+    rel = (got - want).abs() / want.abs()
+    return (pattern, int(band.sum()), rel[band].max().item(),
+            (got - want)[band].abs().max().item(), rel[tail].max().item())
+
+
+def chandrasekhar_steps(T_mat, R_mat, Q, Z, d_obs, H, data):
+    """Per particle, the Chandrasekhar steps the general Kalman kernel runs
+    on these inputs: it leaves the recursion after the step that rejects
+    the particle (a guard fires or the total turns non-finite). The plain
+    recursion (models/dsge.py bl_kalman_loglike_chandrasekhar) with that
+    exit recorded."""
+    import torch
+    from smc_tpu_torch.models.dsge import (_bl_matvec, _bl_sym,
+                                           bl_lyapunov_doubling)
+    from smc_tpu_torch.ops.linalg import (bl_matmul, bl_transpose,
+                                          bl_psd_fast_solve)
+    n_s, n_o, nb = T_mat.shape[0], Z.shape[0], T_mat.shape[-1]
+    RQR = bl_matmul(R_mat, bl_matmul(Q, bl_transpose(R_mat)))
+    P0 = bl_lyapunov_doubling(T_mat, RQR)
+    F = _bl_sym(bl_matmul(Z, bl_matmul(P0, bl_transpose(Z))) + H)
+    K = bl_matmul(T_mat, bl_matmul(P0, bl_transpose(Z)))
+    eye = torch.eye(n_o, dtype=F.dtype, device=F.device)[:, :, None]
+    M = _bl_sym(-bl_psd_fast_solve(F, eye.expand(n_o, n_o, nb))[0])
+    W = K
+    s = torch.zeros((n_s, nb), dtype=F.dtype, device=F.device)
+    tr_cap = torch.diagonal(F).sum(-1) * (1.0 + 1e-6) + 1e-12
+    bad = torch.zeros(nb, dtype=torch.bool, device=F.device)
+    rejected = torch.zeros(nb, dtype=torch.bool, device=F.device)
+    total = torch.zeros(nb, dtype=F.dtype, device=F.device)
+    steps = torch.full((nb,), data.shape[1], device=F.device)
+    for t in range(data.shape[1]):
+        v = data[:, t, None] - d_obs - _bl_matvec(Z, s)
+        ZW = bl_matmul(Z, W)
+        sol, logdet = bl_psd_fast_solve(F, torch.cat([v[:, None], ZW], 1))
+        quad = torch.sum(v * sol[:, 0], dim=0)
+        total = total - 0.5 * (n_o * 1.8378770664093453 + logdet + quad)
+        s = _bl_matvec(T_mat, s) + _bl_matvec(K, sol[:, 0])
+        MWtZt = bl_matmul(M, bl_transpose(ZW))
+        WMWtZt = bl_matmul(W, MWtZt)
+        F_new = _bl_sym(F + bl_matmul(Z, WMWtZt))
+        K_new = K + bl_matmul(T_mat, WMWtZt)
+        W = bl_matmul(T_mat, W) - bl_matmul(K, sol[:, 1:])
+        M = _bl_sym(M - bl_matmul(MWtZt, bl_matmul(
+            bl_psd_fast_solve(F_new, ZW)[0], M)))
+        diag_F = torch.diagonal(F_new)
+        bad = (bad | (quad < 0.0) | (diag_F <= 0.0).any(dim=1)
+               | (diag_F.sum(-1) > tr_cap))
+        now = bad | ~torch.isfinite(total)
+        steps = torch.where(now & ~rejected, t + 1, steps)
+        rejected = now
+        F, K = F_new, K_new
+    return steps
+
+
+def general_work(A, B, C, X, M, ok, Q, Z, d, H, data):
+    """The flop and bytes of the general kernels' work on these inputs
+    (the cyclic-reduction iterations, doubling steps and filter steps each
+    particle needs) and the bounds: ((re flop, bytes, bound, by), (kalman
+    flop, bytes, bound, by), iterations, doubling steps, filter steps)."""
+    n_s, n_k, n_o, n = A.shape[0], M.shape[1], Z.shape[0], A.shape[-1]
+    n_t = data.shape[1]
+    cr_it = cr_iterations(A, B, C)
+    okX, okM = X[..., ok], M[..., ok]
+    sub = lambda t: t[..., ok].contiguous()
+    ly_it = lyapunov_iterations(okX)
+    steps = chandrasekhar_steps(okX, okM, sub(Q), sub(Z), sub(d), sub(H),
+                                data)
+    re_flop = _work_flop(cr_it, lambda i: re_flops(n_s, n_k, i))
+    kal_flop = _add(_f(), *(kalman_flops(n_s, n_k, int(i), int(st), n_o)
+                            for i, st in zip(ly_it.tolist(),
+                                             steps.tolist())))
+    re_bytes = n * (8 * (3 * n_s * n_s + n_s * n_k)
+                    + 8 * (n_s * n_s + n_s * n_k) + 1)
+    kal_bytes = (n * (8 * (n_s * n_s + n_s * n_k + n_k * n_k + n_o * n_s
+                           + n_o + n_o * n_o) + 1 + 8) + 8 * data.numel())
+    return ((re_flop, re_bytes, *bound_ms(re_flop, re_bytes)),
+            (kal_flop, kal_bytes, *bound_ms(kal_flop, kal_bytes)),
+            cr_it, ly_it, steps)
+
+
+def general_compare(name, A, B, C, D, Q, Z, d, H, data, tail_rtol,
+                    min_band=1):
+    """The general kernels against their plain versions on one batch: the
+    RE ok agreement, X and M normwise, the likelihood's bands (tail_rtol
+    within TAIL_NATS, at least min_band lanes within BAND_NATS); raises on
+    a failed gate. Returns the kernels' outputs and the errors."""
+    import torch
+    from torch_parity import BAND_RTOL, normwise_rel
+    from smc_tpu_torch.models.dsge import (bl_solve_linear_re,
+                                           bl_kalman_loglike_chandrasekhar)
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    X, M, ok = g.solve_linear_re(A, B, C, D)
+    ll = g.kalman_chandrasekhar(X, M, Q, Z, d, H, data, ok=ok)
+    Xp, Mp, okp = bl_solve_linear_re(A, B, C, D)
+    llp = torch.where(okp, bl_kalman_loglike_chandrasekhar(
+        Xp, Mp, Q, Z, d, H, data), float("-inf"))
+    torch.cuda.synchronize()
+    agree = (ok == okp).double().mean().item()
+    both = ok & okp
+    xm = max(normwise_rel(X[..., both], Xp[..., both]).max().item(),
+             normwise_rel(M[..., both], Mp[..., both]).max().item())
+    xm_abs = max((X[..., both] - Xp[..., both]).abs().max().item(),
+                 (M[..., both] - Mp[..., both]).abs().max().item())
+    pattern, n_band, band_rel, band_abs, tail_rel = loglh_errors(
+        ll, llp, ok == okp)
+    print(f"# general {name}: ok {int(ok.sum())}/{ok.numel()} (plain "
+          f"{int(okp.sum())}), agreement {agree:.6f}, X/M {xm:.3e}; "
+          f"loglike {band_rel:.3e} over {n_band} band lanes (gate "
+          f"{BAND_RTOL:g}), {tail_rel:.3e} within the tail (gate "
+          f"{tail_rtol:g}), finite-pattern disagreements {pattern}")
+    if not (agree >= OK_AGREE_MIN and xm <= XM_RTOL and pattern == 0
+            and n_band >= min_band and band_rel <= BAND_RTOL
+            and tail_rel <= tail_rtol):
+        raise RuntimeError(f"general {name}: the kernels disagree with "
+                           "their plain versions")
+    return X, M, ok, ll, xm_abs, band_abs
+
+
+def general_phase(dev, ptxas):
+    """The general-shape DSGE kernels (ops/cuda_dsge_general.py) against
+    their plain versions on the card: at SW's shape on SW_N_PARTS prior
+    draws and 4 near-mode draws (SW's tail band), a NaN particle there, at
+    AS-2obs's shape on AS_N_PARTS prior draws, and at the synthetic shapes
+    GEN_STATES x GEN_OBS; the kernels' times (back to back and from a CUDA
+    graph), bounds, registers and spills, the plain versions' times, the
+    library calls nearest the inner steps, and one SW likelihood call at
+    SW_LARGE_N draws. Returns the kernels-line entries (launches filled in
+    by phase (f))."""
+    import numpy as np
+    import torch
+    from torch_parity import TAIL_RTOL, synthetic_system
+    from smc_tpu_torch.models import as_dsge, sw_dsge
+    from smc_tpu_torch.models.dsge import (bl_solve_linear_re,
+                                           bl_kalman_loglike_chandrasekhar)
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    from smc_tpu_torch.params import ParamSpace
+    from smc_tpu_torch.rng import TorchDraws
+
+    def inputs(mod, params, measurement, data_np, n, seed, extra=None):
+        th = ParamSpace(params).sample_prior(TorchDraws(seed, dev), n,
+                                             device=dev)
+        if extra is not None:
+            th = torch.cat([th, torch.as_tensor(extra, device=dev)])
+        d, Z, H = measurement(th)
+        data = torch.as_tensor(data_np, device=dev).contiguous()
+        return th, (*mod._system(th), mod._shock_cov(th), Z, d, H, data)
+
+    near = sw_dsge.TRUE_PARAMS * (1.0 + 1e-4 * np.random.default_rng(1)
+                                  .standard_normal((4, 36)))
+    _, sw_in = inputs(sw_dsge, sw_dsge.sw_parameters(), sw_dsge._measurement,
+                      sw_dsge.load_sw_data(), SW_N_PARTS, 2, near)
+    A, B, C, D, Q, Z, d, H, data = sw_in
+    X, M, ok, ll, re_abs, ll_abs = general_compare(
+        f"SW ({SW_N_PARTS} prior, 4 near-mode draws)", *sw_in, SW_TAIL_RTOL,
+        min_band=2)
+    # a NaN particle leaves its neighbours bitwise unchanged
+    j = SW_N_PARTS // 2 + 3
+    A_nan = A.clone()
+    A_nan[:, :, j] = float("nan")
+    ll2 = g.dsge_loglike(A_nan, B, C, D, Q, Z, d, H, data)
+    keep = torch.arange(A.shape[-1], device=dev) != j
+    same = torch.equal(ll2[keep], ll[keep])
+    print(f"# general NaN particle {j}: loglh {ll2[j].item()}, neighbours "
+          f"bitwise unchanged: {same}")
+    if not (same and ll2[j].item() == float("-inf")):
+        raise RuntimeError("general: a NaN particle changed other particles")
+
+    (re_w, kal_w, cr_it, ly_it, steps) = general_work(
+        A, B, C, X, M, ok, Q, Z, d, H, data)
+    re_flop, re_bytes, re_bound, re_by = re_w
+    kal_flop, kal_bytes, kal_bound, kal_by = kal_w
+    re_ms = cuda_ms(lambda: g.solve_linear_re(A, B, C, D), 5, 3)
+    kal_ms = cuda_ms(lambda: g.kalman_chandrasekhar(
+        X, M, Q, Z, d, H, data, ok=ok), 5, 3)
+    re_graph = graph_ms(lambda: g.solve_linear_re(A, B, C, D), 5, 3)
+    kal_graph = graph_ms(lambda: g.kalman_chandrasekhar(
+        X, M, Q, Z, d, H, data, ok=ok), 5, 3)
+    Xp, Mp, okp = bl_solve_linear_re(A, B, C, D)
+    re_plain = once_ms(lambda: bl_solve_linear_re(A, B, C, D))
+    kal_plain = once_ms(lambda: torch.where(
+        okp, bl_kalman_loglike_chandrasekhar(Xp, Mp, Q, Z, d, H, data),
+        float("-inf")))
+    regs = {k: ptxas.get(f"{k}_general_kernel<256>") for k in ("re",
+                                                               "kalman")}
+    print(f"# general at SW's shape, N={A.shape[-1]}: cyclic reduction "
+          f"{cr_it.double().mean().item():.4f} iterations, doubling "
+          f"{ly_it.double().mean().item():.4f} steps and "
+          f"{steps.double().mean().item():.4f} filter steps over "
+          f"{int(ok.sum())} ok particles; re {_flop_str(re_flop)} "
+          f"{re_bytes} B, bound {re_bound:.4f} ms ({re_by}); kalman "
+          f"{_flop_str(kal_flop)} {kal_bytes} B, bound {kal_bound:.4f} ms "
+          f"({kal_by})")
+    print(f"# general times at SW's shape (ms): re kernel {re_ms:.4f}, graph "
+          f"{re_graph:.4f} ({100 * re_bound / re_ms:.2f}% of bound), plain "
+          f"{re_plain:.4f}; kalman kernel {kal_ms:.4f}, graph {kal_graph:.4f} "
+          f"({100 * kal_bound / kal_ms:.2f}% of bound), plain "
+          f"{kal_plain:.4f}; re_general_kernel<256> {regs['re']}; "
+          f"kalman_general_kernel<256> {regs['kalman']}")
+
+    # AS-2obs's shape (n_state 6: the 64-thread block; n_obs 2: Cholesky)
+    _, as_in = inputs(as_dsge, as_dsge.an_schorfheide_parameters(),
+                      as_dsge._measurement_2obs, as_dsge.load_as_data()[:2],
+                      AS_N_PARTS, 3)
+    Xa, Ma, oka, _, _, _ = general_compare(
+        f"AS-2obs ({AS_N_PARTS} prior draws)", *as_in, TAIL_RTOL)
+    (re_a, kal_a, _, _, _) = general_work(*as_in[:3], Xa, Ma, oka,
+                                          *as_in[4:])
+    Aa, Ba, Ca, Da, Qa, Za, da, Ha, ya = as_in
+    re_ms_a = cuda_ms(lambda: g.solve_linear_re(Aa, Ba, Ca, Da), 10, 3)
+    kal_ms_a = cuda_ms(lambda: g.kalman_chandrasekhar(
+        Xa, Ma, Qa, Za, da, Ha, ya, ok=oka), 10, 3)
+    print(f"# general times at AS-2obs's shape (ms): re kernel {re_ms_a:.4f} "
+          f"({100 * re_a[2] / re_ms_a:.2f}% of {re_a[2]:.4f}, {re_a[3]}); "
+          f"kalman kernel {kal_ms_a:.4f} ({100 * kal_a[2] / kal_ms_a:.2f}% "
+          f"of {kal_a[2]:.4f}, {kal_a[3]}); re_general_kernel<64> "
+          f"{ptxas.get('re_general_kernel<64>')}; kalman_general_kernel<64> "
+          f"{ptxas.get('kalman_general_kernel<64>')}")
+
+    for n_s in GEN_STATES:
+        for n_o in GEN_OBS:
+            sys_np, data_np = synthetic_system(n_s, GEN_SHOCK, GEN_N,
+                                               n_o=n_o)
+            sys_t = [torch.as_tensor(x, device=dev) for x in sys_np]
+            y = torch.as_tensor(data_np, device=dev)
+            general_compare(f"synthetic ({n_s}, {GEN_SHOCK}, {n_o})",
+                            *sys_t, y, TAIL_RTOL)
+
+    # the library calls nearest the inner steps (none computes either
+    # function): one cyclic-reduction step's solve, the innovation factor
+    lhs = B.permute(2, 0, 1).contiguous()
+    rhs = torch.cat([A, C], dim=1).permute(2, 0, 1).contiguous()
+    F = (Z.permute(2, 0, 1) @ Z.permute(2, 1, 0)
+         + torch.eye(Z.shape[0], dtype=Z.dtype, device=dev))
+    lu_ms = cuda_ms(lambda: torch.linalg.lu_solve(
+        *torch.linalg.lu_factor_ex(lhs)[:2], rhs), 5, 3)
+    chol_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(F), 20, 3)
+    print(f"# general library calls at N={A.shape[-1]}: torch.linalg."
+          f"lu_factor_ex + lu_solve 37 x 37, 74 right-hand sides "
+          f"{lu_ms:.4f} ms; torch.linalg.cholesky_ex 7 x 7 {chol_ms:.4f} ms")
+
+    # one SW likelihood call at the reference's production size
+    model = sw_dsge.smets_wouters()
+    th, big = inputs(sw_dsge, sw_dsge.sw_parameters(), sw_dsge._measurement,
+                     sw_dsge.load_sw_data(), SW_LARGE_N, 5)
+    call = lambda: model.loglike_batched(th, sw_dsge.load_sw_data())
+    big_ms = cuda_ms(call, 2, 3)
+    Xb, Mb, okb = g.solve_linear_re(*big[:4])
+    (re_b, kal_b, _, _, _) = general_work(*big[:3], Xb, Mb, okb, *big[4:])
+    bound_b, by_b = bound_ms(_add(re_b[0], kal_b[0]), re_b[1] + kal_b[1])
+    print(f"# general SW likelihood call at N={SW_LARGE_N}: {big_ms:.4f} ms "
+          f"(the model's loglike_batched, system matrices included), bound "
+          f"of the kernels' work {bound_b:.4f} ms ({by_b}; "
+          f"{100 * bound_b / big_ms:.2f}%), {int(okb.sum())} ok")
+    src = "smc_tpu_torch/csrc/dsge_general_kernels.cu"
+    return [
+        dict(name="re_general", route="cuda", source=src,
+             replaces="smc_tpu/models/dsge.py:306", max_abs_err=re_abs,
+             ms=re_ms, plain_ms=re_plain, bound_ms=re_bound, bound_by=re_by,
+             library_ms=None),
+        dict(name="kalman_general", route="cuda", source=src,
+             replaces="smc_tpu/models/dsge.py:351", max_abs_err=ll_abs,
+             ms=kal_ms, plain_ms=kal_plain, bound_ms=kal_bound,
+             bound_by=kal_by, library_ms=None),
+    ]
 
 
 def as_runner(dev):
@@ -717,9 +1065,10 @@ def _eigh_launch_gate(name, n_stages, n_blocks):
 
 
 def _reset_launches():
-    from smc_tpu_torch.ops import cuda_dsge, cuda_eigh, cuda_metropolis
-    for counts in (cuda_dsge.LAUNCHES, cuda_eigh.LAUNCHES,
-                   cuda_metropolis.LAUNCHES):
+    from smc_tpu_torch.ops import (cuda_dsge, cuda_dsge_general, cuda_eigh,
+                                   cuda_metropolis)
+    for counts in (cuda_dsge.LAUNCHES, cuda_dsge_general.LAUNCHES,
+                   cuda_eigh.LAUNCHES, cuda_metropolis.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -1106,56 +1455,81 @@ def prior_draws(params, n, seed=11):
 
 
 def sw_call_stats(dev, model, data):
-    """One SW likelihood call at SW_N_PARTS prior draws: its time between
-    CUDA events, its host time, the device launches one call makes, and the
-    least time for its work (the plain path's fixed iteration counts, and
-    the counts these draws need)."""
+    """One SW likelihood call at SW_N_PARTS prior draws through the model
+    (on the card the general-shape kernels): its time between CUDA events,
+    its host time, its device launches (the profiler's count, and the
+    kernels' counters) and its share of the least time for the work these
+    draws need (the kernels' iteration counts), beside the plain call
+    (models/dsge.py bl_dsge_loglike on the same system matrices) and its
+    bound at the plain path's fixed counts."""
     import torch
     from torch.profiler import profile, ProfilerActivity
     from torch.autograd import DeviceType
     from smc_tpu_torch.models import sw_dsge
-    from smc_tpu_torch.models.dsge import bl_solve_linear_re
+    from smc_tpu_torch.models.dsge import bl_dsge_loglike
+    from smc_tpu_torch.ops import cuda_dsge_general as g
     from smc_tpu_torch.params import ParamSpace
     from smc_tpu_torch.rng import TorchDraws
     th = ParamSpace(sw_dsge.sw_parameters()).sample_prior(
         TorchDraws(2, dev), SW_N_PARTS, device=dev)
+    y = torch.as_tensor(data, device=dev).contiguous()
+
+    def plain():
+        d, Z, H = sw_dsge._measurement(th)
+        return bl_dsge_loglike(*sw_dsge._system(th), sw_dsge._shock_cov(th),
+                               Z, d, H, y)
+
+    def launches_of(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+
     call = lambda: model.loglike_batched(th, data)
-    ms = cuda_ms(call, 2, 3)
+    ms = cuda_ms(call, 3, 3)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     call()
     host_ms = 1e3 * (time.perf_counter() - t0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    launches = sum(1 for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    before = dict(g.LAUNCHES)
+    launches = launches_of(call)
+    counted = {k: v - before[k] for k, v in g.LAUNCHES.items()}
+    plain_ms = once_ms(plain)
+    plain_launches = launches_of(plain)
     ns, nk, no, n_t = sw_dsge.N_STATE, sw_dsge.N_SHOCK, sw_dsge.N_OBS, \
         data.shape[1]
     n_bytes = (8 * SW_N_PARTS * (3 * ns * ns + ns * nk + nk * nk + no * ns
                                  + no + no * no + 1) + 8 * no * n_t)
-    flop = SW_N_PARTS * (re_flops(ns, nk, 16) + kalman_flops(ns, nk, 30, n_t,
-                                                             no))
+    flop = _mul(SW_N_PARTS, _add(re_flops(ns, nk, 16),
+                                 kalman_flops(ns, nk, 30, n_t, no)))
     bound, by = bound_ms(flop, n_bytes)
     A, B, C, D = sw_dsge._system(th)
-    cr_it = cr_iterations(A, B, C)
-    X, _, ok = bl_solve_linear_re(A, B, C, D)
-    ly_it = lyapunov_iterations(X[..., ok])
-    need = (sum(re_flops(ns, nk, int(i)) for i in cr_it.tolist())
-            + sum(kalman_flops(ns, nk, int(i), n_t, no)
-                  for i in ly_it.tolist()))
-    need_bound, need_by = bound_ms(need, n_bytes)
-    print(f"# (f) SW likelihood call at N={SW_N_PARTS} (plain PyTorch, no "
-          f"kernel): {ms:.4f} ms between CUDA events, {host_ms:.4f} ms of "
-          f"host time, {launches} device launches; work {flop:.4e} flop "
-          f"(16 cyclic-reduction iterations, 30 doubling steps), bound "
-          f"{bound:.4f} ms ({by}), {100 * bound / ms:.2f}% of it; these draws"
-          f" need {cr_it.double().mean().item():.4f} iterations and "
-          f"{ly_it.double().mean().item():.4f} doubling steps on average "
-          f"({int(ok.sum())} ok): {need:.4e} flop, bound {need_bound:.4f} ms "
-          f"({need_by})")
+    d, Z, H = sw_dsge._measurement(th)
+    X, M, ok = g.solve_linear_re(A, B, C, D)
+    re_w, kal_w, cr_it, ly_it, steps = general_work(
+        A, B, C, X, M, ok, sw_dsge._shock_cov(th), Z, d, H, y)
+    need_flop = _add(re_w[0], kal_w[0])
+    need_bound, need_by = bound_ms(need_flop, n_bytes)
+    print(f"# (f) SW likelihood call at N={SW_N_PARTS} (the general "
+          f"kernels): {ms:.4f} ms between CUDA events, {host_ms:.4f} ms of "
+          f"host time, {launches} device launches ({counted}); these draws "
+          f"need {cr_it.double().mean().item():.4f} iterations, "
+          f"{ly_it.double().mean().item():.4f} doubling steps and "
+          f"{steps.double().mean().item():.4f} filter steps on average "
+          f"({int(ok.sum())} ok): {_flop_str(need_flop)}, bound "
+          f"{need_bound:.4f} ms ({need_by}), {100 * need_bound / ms:.2f}% of "
+          f"it; the plain call: {plain_ms:.4f} ms, {plain_launches} device "
+          f"launches; work at its fixed counts (16 cyclic-reduction "
+          f"iterations, 30 doubling steps, every filter step) "
+          f"{_flop_str(flop)}, bound {bound:.4f} ms ({by}), "
+          f"{100 * bound / ms:.2f}% of "
+          f"the kernels' call")
+    if counted != {"re_general": 1, "kalman_general": 1}:
+        raise RuntimeError(f"(f) the SW likelihood call launched {counted}, "
+                           "not one of each general kernel")
 
 
 def _run_line(name, res, wall, n_parts):
@@ -1205,21 +1579,32 @@ def sw_gates(name, res):
 
 def sw_phase(dev):
     """(f) SW-4k: Smets-Wouters at the reference dsge_model.jl's
-    configuration on the committed data, gated as the JAX package's
-    tests/test_sw_estimation.py; then one likelihood call's cost, and
-    prior draws and posterior particles on the card against the CPU."""
+    configuration on the committed data, through the general-shape kernels
+    (their launches counted, one of each per likelihood call), gated as the
+    JAX package's tests/test_sw_estimation.py; then one likelihood call's
+    cost, and prior draws and posterior particles on the card against the
+    CPU. Returns the general kernels' launches."""
     import numpy as np
     import torch
     from smc_tpu_torch.models import sw_dsge
-    from smc_tpu_torch.ops import cuda_dsge
+    from smc_tpu_torch.ops import cuda_dsge, cuda_dsge_general
     model, data, run = sw_runner(dev)
     _, wall = _timed(lambda: run(n_phi=3, seed=1))
     print(f"# (f) warm-up (2 stages) {wall:.4f} s")
     _reset_launches()
     res, wall = _timed(lambda: run(seed=0))
+    launches = dict(cuda_dsge_general.LAUNCHES)
     sched = np.asarray(res.cloud.tempering_schedule)
     sw_gates(f"(f) SW-{SW_N_PARTS}", res)
-    print(f"# (f) kernel launches {dict(cuda_dsge.LAUNCHES)}")
+    # one likelihood call per block per stage, masked stages too
+    expected = (1 + res.init_rounds + (len(sched) - 1 + res.masked_stages)
+                * SW_CONFIG["n_blocks"])
+    print(f"# (f) kernel launches {dict(cuda_dsge.LAUNCHES)}, general "
+          f"{launches} (expected {expected} each: 1 + {res.init_rounds} "
+          f"redraw rounds + {SW_CONFIG['n_blocks']} a stage)")
+    if any(v != expected for v in launches.values()):
+        raise RuntimeError("(f) SW did not go through the general kernels "
+                           "once per likelihood call")
     _run_line("(f) SW", res, wall, SW_N_PARTS)
     _eigh_launch_gate("(f) SW", len(sched) - 1, SW_CONFIG["n_blocks"])
     sw_call_stats(dev, model, data)
@@ -1228,26 +1613,37 @@ def sw_phase(dev):
     card_vs_cpu(dev, f"(f) SW ({SW_CMP_DRAWS} prior draws, "
                 f"{SW_CMP_POSTERIOR} posterior particles)", model, th, data,
                 SW_TAIL_RTOL)
+    return launches
 
 
 def as2obs_phase(dev):
     """(g) AS-2obs-16k: An-Schorfheide on output growth and inflation
-    (the Cholesky innovation path, plain PyTorch) at AS-16k's
-    configuration, and 16,384 prior draws on the card against the CPU."""
+    (the Cholesky innovation path, the general-shape kernels, one launch of
+    each per likelihood call) at AS-16k's configuration, and 16,384 prior
+    draws on the card against the CPU."""
     import numpy as np
     import smc_tpu_torch
     from torch_parity import TAIL_RTOL
     from smc_tpu_torch.models import as_dsge
+    from smc_tpu_torch.ops import cuda_dsge_general
     model, data = as_dsge.an_schorfheide_2obs(), as_dsge.load_as_data()[:2]
     run = lambda **kw: smc_tpu_torch.smc(
         model.loglike_batched, as_dsge.an_schorfheide_parameters(), data,
         **dict(AS_CONFIG, **kw), device=dev)
     _timed(lambda: run(n_phi=3, seed=1))
+    _reset_launches()
     res, wall = _timed(lambda: run(seed=0))
+    launches = dict(cuda_dsge_general.LAUNCHES)
+    expected = (1 + res.init_rounds + len(res.cloud.tempering_schedule) - 1
+                + res.masked_stages)
     mu, sd = res.posterior_mean(), res.posterior_std()
     z = np.abs(mu - as_dsge.TRUE_PARAMS) / np.maximum(sd, 1e-9)
     print(f"# (g) AS-2obs: log-MDD {res.log_mdd:.4f} (JAX package "
-          f"{REF_LOG_MDD_AS2}); max |z| vs TRUE_PARAMS {z.max():.3f}")
+          f"{REF_LOG_MDD_AS2}); max |z| vs TRUE_PARAMS {z.max():.3f}; "
+          f"general kernel launches {launches} (expected {expected} each)")
+    if any(v != expected for v in launches.values()):
+        raise RuntimeError("(g) AS-2obs did not go through the general "
+                           "kernels once per likelihood call")
     _run_line("(g) AS-2obs", res, wall, AS_N_PARTS)
     if not abs(res.log_mdd - REF_LOG_MDD_AS2) <= MDD_TOL:
         raise RuntimeError(f"(g) log-MDD {res.log_mdd} not within {MDD_TOL} "
@@ -1836,9 +2232,10 @@ def eigh_bound(ks):
     """The least time for the symmetric eigendecompositions, with vectors,
     of matrices of these sizes, whatever the method: about 9 k^3 flop per
     matrix (the symmetric QR algorithm with the vectors accumulated, Golub
-    and Van Loan), and each matrix read once, its eigenvalues and vectors
-    written once."""
-    flop = sum(9 * k ** 3 for k in ks)
+    and Van Loan), all of it counted as matrix products (a blocked method
+    puts it there, on the tensor cores), and each matrix read once, its
+    eigenvalues and vectors written once."""
+    flop = _f(prod=sum(9 * k ** 3 for k in ks))
     nbytes = sum(8 * (2 * k * k + k) for k in ks)
     return bound_ms(flop, nbytes)
 
@@ -2071,6 +2468,7 @@ def main(argv=None) -> int:
         return 0
     kernels = kernel_phase(dev)
     shapes = shape_phase(dev, ptxas)
+    general = general_phase(dev, ptxas)
     launches, res_as, wall_as = main_path(dev)
     lin, res_a, wall_a = linear_phase(dev)
     res_b, wall_b = adaptive_phase(dev)
@@ -2089,7 +2487,7 @@ def main(argv=None) -> int:
                         chain_launches)
     checkpoint_phase(dev, lin, res_a)
     tempered_phase(dev, lin)
-    sw_phase(dev)
+    sw_launches = sw_phase(dev)
     if args.profile:
         _, _, run_sw = sw_runner(dev)
         profile_path(args.profile, "sw4k", lambda: run_sw(seed=0, n_phi=2))
@@ -2106,6 +2504,9 @@ def main(argv=None) -> int:
     for k, key in zip(kernels, ("re", "kalman", "eigh")):
         k["launches"] = launches[key]
     kernels.append(chain)
+    for k, key in zip(general, ("re_general", "kalman_general")):
+        k["launches"] = sw_launches[key]
+    kernels.extend(general)
     kernels.extend(shapes)
     print(f"# all phases {time.perf_counter() - t_start:.1f} s (build "
           "included)")

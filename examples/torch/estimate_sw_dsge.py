@@ -2,8 +2,9 @@
 the PyTorch and CUDA port (the JAX package's script is
 examples/estimate_sw_dsge.py): the reference's production-scale
 configuration (examples/dsge_models/dsge_model.jl: n_parts=1000+, 3 blocks,
-alpha=0.9, multinomial resampling) on one card, batched likelihoods (the
-plain PyTorch path: no kernel has SW's 37 states). The data are the JAX
+alpha=0.9, multinomial resampling) on one card, batched likelihoods (on
+the card the general-shape CUDA kernels, ops/cuda_dsge_general.py; on the
+CPU their plain PyTorch versions). The data are the JAX
 package's generate_sw_data(T=156, seed=1793), committed as an array.
 
 Run: python examples/torch/estimate_sw_dsge.py [--device cpu]

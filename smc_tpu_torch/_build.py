@@ -16,10 +16,11 @@ library as <library>.log.
 
 `build_cpu_library(n_state, n_shock)` compiles csrc/dsge_cpu.cpp (the
 per-particle bodies as plain host loops) for one shape,
-`build_eigh_cpu_library` csrc/eigh_cpu.cpp (the Jacobi
-body, block by block) and `build_metropolis_cpu_library`
-csrc/metropolis_cpu.cpp (the chain, slot by slot) with g++. Only the tests
-use them.
+`build_general_cpu_library` csrc/dsge_general_cpu.cpp (the general-shape
+block bodies, particle by particle), `build_eigh_cpu_library`
+csrc/eigh_cpu.cpp (the Jacobi body, block by block) and
+`build_metropolis_cpu_library` csrc/metropolis_cpu.cpp (the chain, slot by
+slot) with g++. Only the tests use them.
 
 A missing compiler or a failed build raises RuntimeError with the
 compiler's output; nothing here returns None.
@@ -89,6 +90,13 @@ def _compile(compiler, flags, source: Path, stem: str) -> Path:
     return out
 
 
+# dynamic shared memory a block may use on Hopper (227 KB; above 48 KB a
+# kernel must be allowed it, once per device). The one place it is set: the
+# build passes it to the compiler for the kernels that size their tiles by it
+# (csrc/dsge_general.cuh, csrc/eigh_jacobi.cuh) and the wrappers read it.
+SMEM_LIMIT = 227 * 1024
+_SMEM_FLAGS = (f"-DSMC_SMEM_LIMIT={SMEM_LIMIT}",)
+
 # the DSGE kernels' domain, that of the TPU kernels they replace: n_state
 # and n_shock 1..DSGE_MAX_DIM (n_obs 3). The one place it is set: the build
 # passes it to the compiler (csrc/dsge_sizes.cuh checks it) and
@@ -97,11 +105,24 @@ DSGE_MAX_DIM = 8
 DSGE_STATES = range(1, DSGE_MAX_DIM + 1)
 _DSGE_FLAGS = (f"-DSMC_MAX_DIM={DSGE_MAX_DIM}",)
 
+# the general-shape DSGE kernels' domain: n_state, n_shock and n_obs up to
+# these, at run time (the tiles of the largest shape fit a block's shared
+# memory; csrc/dsge_general.cuh checks it). The one place they are set: the
+# build passes them to the compiler and ops/cuda_dsge_general.py reads them.
+GENERAL_MAX_STATE = 64
+GENERAL_MAX_SHOCK = 64
+GENERAL_MAX_OBS = 16
+_GENERAL_FLAGS = (f"-DSMC_GEN_MAX_STATE={GENERAL_MAX_STATE}",
+                  f"-DSMC_GEN_MAX_SHOCK={GENERAL_MAX_SHOCK}",
+                  f"-DSMC_GEN_MAX_OBS={GENERAL_MAX_OBS}", *_SMEM_FLAGS)
+
 # the kernel libraries: name -> (source, library stem, extra nvcc flags)
 CUDA_LIBRARIES = {
     **{f"dsge_ns{k}": ("dsge_kernels.cu", f"libsmc_dsge_ns{k}_cuda",
                        (*_DSGE_FLAGS, f"-DSMC_NS={k}")) for k in DSGE_STATES},
-    "eigh": ("eigh_kernel.cu", "libsmc_eigh_cuda", ()),
+    "dsge_general": ("dsge_general_kernels.cu", "libsmc_dsge_general_cuda",
+                     _GENERAL_FLAGS),
+    "eigh": ("eigh_kernel.cu", "libsmc_eigh_cuda", _SMEM_FLAGS),
     "metropolis": ("metropolis_kernel.cu", "libsmc_metropolis_cuda", ()),
 }
 
@@ -139,9 +160,16 @@ def build_cpu_library(n_state: int = 6, n_shock: int = 3) -> Path:
                     f"libsmc_dsge_cpu_ns{n_state}_nk{n_shock}")
 
 
+def build_general_cpu_library() -> Path:
+    """Path of the host build of the general-shape DSGE block bodies (tests
+    only)."""
+    return _compile(_gxx(), [*GXX_FLAGS, *_GENERAL_FLAGS],
+                    CSRC / "dsge_general_cpu.cpp", "libsmc_dsge_general_cpu")
+
+
 def build_eigh_cpu_library() -> Path:
     """Path of the host build of the Jacobi eigh body (tests only)."""
-    return _compile(_gxx(), GXX_FLAGS, CSRC / "eigh_cpu.cpp",
+    return _compile(_gxx(), [*GXX_FLAGS, *_SMEM_FLAGS], CSRC / "eigh_cpu.cpp",
                     "libsmc_eigh_cpu")
 
 

@@ -1,0 +1,87 @@
+// The block bodies of dsge_general.cuh compiled by a host compiler: a loop
+// over particles, each particle's block of threads run phase by phase
+// (lanes.cuh), with the block's tile in a local buffer. Only the tests use
+// this library: it checks the kernels' arithmetic on a machine without a
+// GPU. Same C interface as dsge_general_kernels.cu, minus the stream.
+#include <vector>
+
+#include "dsge_general.cuh"
+
+namespace {
+
+using namespace smc_general;
+
+bool in_domain(int n, int k, int o) {
+  return n >= 1 && n <= kMaxState && k >= 1 && k <= kMaxShock && o >= 1 &&
+         o <= kMaxObs;
+}
+
+}  // namespace
+
+// the tiles' bytes, as the card's library reports them (-1 outside the
+// domain)
+extern "C" long long smc_general_re_smem_cpu(int n, int k) {
+  return in_domain(n, k, 1) ? 8 * re_doubles(n, k) : -1;
+}
+
+extern "C" long long smc_general_kalman_smem_cpu(int n, int k, int o,
+                                                 int n_t) {
+  return in_domain(n, k, o) && n_t >= 0 ? 8 * kalman_doubles(n, k, o, n_t)
+                                        : -1;
+}
+
+// One Gauss-Jordan elimination of W [n][w] in place (columns n..w-1 then
+// hold A^-1 B) on the block that n_state n takes, each step's pivot row in
+// piv_rows [n].
+extern "C" int smc_general_gj_cpu(int n, int w, double* W, int* piv_rows) {
+  if (!in_domain(n, 1, 1) || w <= n || w > re_width(n, kMaxShock)) return -1;
+  std::vector<double> fac(n), row(w);
+  if (team_for(n) == kSmallTeam)
+    gauss_jordan<kSmallTeam>(W, w, n, w, fac.data(), row.data(), piv_rows);
+  else
+    gauss_jordan<kLargeTeam>(W, w, n, w, fac.data(), row.data(), piv_rows);
+  return 0;
+}
+
+extern "C" int smc_general_re_cpu(int n, int k, const double* A,
+                                  const double* B, const double* C,
+                                  const double* D, double* X, double* M,
+                                  unsigned char* ok, long long nb, int n_iter,
+                                  double tol) {
+  if (!in_domain(n, k, 1) || 8 * re_doubles(n, k) > kSmemLimit || nb < 0)
+    return -1;
+  std::vector<double> tile(re_doubles(n, k));
+  for (long long p = 0; p < nb; ++p) {
+    if (team_for(n) == kSmallTeam)
+      re_block<kSmallTeam>(A, B, C, D, X, M, ok, nb, p, n, k, n_iter, tol,
+                           tile.data());
+    else
+      re_block<kLargeTeam>(A, B, C, D, X, M, ok, nb, p, n, k, n_iter, tol,
+                           tile.data());
+  }
+  return 0;
+}
+
+extern "C" int smc_general_kalman_cpu(int n, int k, int o, const double* T,
+                                      const double* R, const double* Q,
+                                      const double* Z, const double* d,
+                                      const double* H, const double* data,
+                                      int n_t, const unsigned char* ok,
+                                      long long nb, int lyap_iter,
+                                      double* out) {
+  if (!in_domain(n, k, o) || n_t < 0 || nb < 0 ||
+      8 * kalman_doubles(n, k, o, n_t) > kSmemLimit)
+    return -1;
+  std::vector<double> tile(kalman_doubles(n, k, o, n_t));
+  double* ys = tile.data() + kalman_fixed(n, o) + kalman_union(n, k, o);
+  for (int i = 0; i < o * n_t; ++i) ys[i] = data[i];
+  for (long long p = 0; p < nb; ++p) {
+    if (team_for(n) == kSmallTeam)
+      kalman_block<kSmallTeam>(T, R, Q, Z, d, H, n_t, ok, nb, p, n, k, o,
+                               lyap_iter, out, tile.data());
+    else
+      kalman_block<kLargeTeam>(T, R, Q, Z, d, H, n_t, ok, nb, p, n, k, o,
+                               lyap_iter, out, tile.data());
+  }
+  return 0;
+}

@@ -64,6 +64,10 @@
 
 #include "lanes.cuh"
 
+#ifndef SMC_SMEM_LIMIT
+#error "build with -DSMC_SMEM_LIMIT (smc_tpu_torch/_build.py)"
+#endif
+
 namespace smc_jacobi {
 
 using smc::Lanes;
@@ -72,7 +76,7 @@ using smc::kWarp;
 constexpr int kWarpK = 32;           // a small team per matrix up to this k
 constexpr int kSmallThreads = 64;    // that team: two warps
 constexpr int kBlockThreads = 512;   // every launch's block
-constexpr int kSmemLimit = 232448;   // dynamic shared memory of a block
+constexpr int kSmemLimit = SMC_SMEM_LIMIT;  // a block's (_build.py)
 constexpr int kSharedK = 118;        // A and V in shared memory up to this k
 constexpr int kMaxK = 1024;
 constexpr int kMaxSweeps = 30;

@@ -131,7 +131,9 @@ def _shock_cov(thetas: torch.Tensor):
 def an_schorfheide(likelihood_backend: str = "kernel",
                    mesh=None) -> LinearDSGE:
     """AS with the CUDA kernels ("kernel", or the JAX package's "pallas")
-    or the plain path ("plain", or "xla"); `mesh` as LinearDSGE takes it
+    or the "plain" backend ("xla": on a card the same kernels, AS's shape
+    lying in their domain, on the CPU the bl_* functions); `mesh` as
+    LinearDSGE takes it
     (the kernels run per rank either way)."""
     return LinearDSGE(an_schorfheide_parameters(), _system, _measurement,
                       _N_SHOCK, _shock_cov,
@@ -146,8 +148,11 @@ def _measurement_2obs(thetas: torch.Tensor):
 
 
 def an_schorfheide_2obs() -> LinearDSGE:
-    """An-Schorfheide with 2 observables. The kernels serve n_obs = 3 only,
-    so the likelihood is the plain PyTorch path."""
+    """An-Schorfheide with 2 observables, on the "plain" backend (the JAX
+    package's "xla"; the "kernel" backend's kernels serve n_obs = 3 only):
+    on a CUDA tensor the general-shape CUDA kernels
+    (ops/cuda_dsge_general.py), on a CPU tensor the plain PyTorch bl_*
+    functions."""
     return LinearDSGE(an_schorfheide_parameters(), _system,
                       _measurement_2obs, _N_SHOCK, _shock_cov,
                       likelihood_backend="plain")

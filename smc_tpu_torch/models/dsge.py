@@ -11,10 +11,10 @@ covariance (Lyapunov doubling). Rejected draws give -inf.
 
 The `bl_*` functions here are the plain PyTorch versions: batch-last
 [r, c, N] tensors, fixed iteration counts. They are what a CPU tensor runs
-and what the CUDA kernels (ops/cuda_dsge.py) are held against. The
-per-particle functions (`solve_linear_re`, `lyapunov_doubling`,
-`kalman_loglike`, `kalman_loglike_chandrasekhar`) are the `bl_*` ones at
-N = 1.
+and what the CUDA kernels (ops/cuda_dsge.py, ops/cuda_dsge_general.py) are
+held against. The per-particle functions (`solve_linear_re`,
+`lyapunov_doubling`, `kalman_loglike`, `kalman_loglike_chandrasekhar`) are
+the `bl_*` ones at N = 1.
 """
 
 from __future__ import annotations
@@ -195,6 +195,31 @@ def bl_dsge_loglike(A, B, C, D, Q, Z, d_obs, H, data,
 # ---------------------------------------------------------------------------
 
 
+def likelihood_route(backend: str, use_chand_recursion: bool,
+                     device_type: str, n_state: int, n_shock: int,
+                     n_obs: int, n_t: int) -> str:
+    """Which likelihood LinearDSGE.loglike_batched runs, from the backend,
+    the filter, the device type and the shapes alone (nothing is built):
+    "kernel" (ops/cuda_dsge.py) for the "kernel" backend, and for the
+    "plain" backend on a CUDA tensor with the Chandrasekhar filter at shapes
+    those kernels take (n_obs 3, n_state and n_shock <= 8: there they are
+    the faster of the two, and both compute this function to rounding);
+    "general" (ops/cuda_dsge_general.py) for the same at the other shapes
+    the general kernels take; "plain" (bl_dsge_loglike) otherwise: any CPU
+    tensor, the Riccati filter, shapes past both domains."""
+    backend = BACKENDS[backend]
+    if backend == "kernel":
+        return "kernel"
+    if device_type != "cuda" or not use_chand_recursion:
+        return "plain"
+    from smc_tpu_torch.ops import cuda_dsge, cuda_dsge_general
+    if cuda_dsge.in_domain(n_state, n_shock, n_obs, n_t):
+        return "kernel"
+    return ("general"
+            if cuda_dsge_general.in_domain(n_state, n_shock, n_obs, n_t)
+            else "plain")
+
+
 def _n1(*xs):
     return [x[..., None] for x in xs]
 
@@ -235,10 +260,17 @@ class LinearDSGE:
     shock_cov_fn -> Q, every matrix batch-last [r, c, N] and contiguous.
 
     likelihood_backend "plain" (the default, as the JAX package's "xla" is
-    its default) runs the bl_* functions above, Chandrasekhar or
-    (use_chand_recursion=False) Riccati, for any shape: a model the JAX
-    package's LinearDSGE takes with its defaults runs here unchanged.
-    "kernel" goes through ops/cuda_dsge.py: the hand-written CUDA kernels
+    its default) takes any shape: a model the JAX package's LinearDSGE
+    takes with its defaults runs here unchanged. On a CUDA tensor, with the
+    Chandrasekhar filter, it runs hand-written kernels: those of "kernel"
+    below inside their domain, else, in theirs, the general kernels
+    (ops/cuda_dsge_general.py: n_state and n_shock up to 64, n_obs up to 16,
+    the observations within a block's shared memory); a failed build or
+    launch raises. The Riccati filter (use_chand_recursion=False), shapes
+    past both domains and every CPU tensor run the bl_* functions above
+    (`likelihood_route` decides, from the shapes and flags alone). "kernel"
+    goes through
+    ops/cuda_dsge.py: the hand-written CUDA kernels
     for CUDA tensors, their plain versions for CPU tensors. It raises
     ValueError, on every device, outside the kernels' domain (n_obs 3,
     1 <= n_state <= 8, 1 <= n_shock <= 8, the TPU kernels' own) and for the
@@ -286,10 +318,17 @@ class LinearDSGE:
         Q = self.shock_cov_fn(thetas)
         d_obs, Z, H = self.measurement_fn(thetas)
         y = self._data.get(data, thetas.device)
-        if self.likelihood_backend == "plain":
+        route = likelihood_route(self.likelihood_backend,
+                                 self.use_chand_recursion, thetas.device.type,
+                                 A.shape[0], D.shape[1], Z.shape[0],
+                                 y.shape[-1])
+        if route == "plain":
             return bl_dsge_loglike(A, B, C, D, Q, Z, d_obs, H, y,
                                    self.use_chand_recursion)
-        from smc_tpu_torch.ops.cuda_dsge import dsge_loglike
+        if route == "general":
+            from smc_tpu_torch.ops.cuda_dsge_general import dsge_loglike
+        else:
+            from smc_tpu_torch.ops.cuda_dsge import dsge_loglike
         return dsge_loglike(A, B, C, D, Q, Z, d_obs, H, y)
 
     def loglike(self, theta: torch.Tensor, data) -> torch.Tensor:

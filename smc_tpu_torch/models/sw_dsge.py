@@ -13,8 +13,9 @@ investment and wage growth, inflation, the policy rate, hours). 37 states,
 The system matrices are built batch-last [r, c, N] from thetas [N, P]: the
 (row, column, coefficient [N]) triples of each matrix are stacked and
 scattered into zeros in one accumulating index_put, as the JAX version's
-`.at[].add` accumulates. The likelihood runs on the plain PyTorch path
-(n_obs = 7 and n_state = 37 have no kernel).
+`.at[].add` accumulates. The likelihood runs on the "plain" backend: on a
+card the general-shape CUDA kernels (ops/cuda_dsge_general.py), on the CPU
+the plain PyTorch bl_* functions.
 """
 
 from __future__ import annotations
@@ -385,7 +386,9 @@ def _shock_cov(thetas: torch.Tensor):
 
 
 def smets_wouters() -> LinearDSGE:
-    """SW2007 on the plain PyTorch likelihood (no kernel has its shapes)."""
+    """SW2007 on the "plain" backend (the JAX package's "xla"): on a CUDA
+    tensor the general-shape CUDA kernels (ops/cuda_dsge_general.py), on a
+    CPU tensor the plain PyTorch bl_* functions."""
     return LinearDSGE(sw_parameters(), _system, _measurement, N_SHOCK,
                       _shock_cov, likelihood_backend="plain")
 

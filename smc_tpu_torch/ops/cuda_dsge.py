@@ -66,7 +66,27 @@ SIZES = tuple((s, k) for s in range(1, MAX_STATE + 1)
 N_OBS = 3
 # dynamic shared memory a block may use on Hopper (the launcher raises the
 # kernel's limit above the default 48 KB when it needs to)
-_MAX_SMEM = 227 * 1024
+_MAX_SMEM = _build.SMEM_LIMIT
+# csrc/dsge_kernels.cu: warps per block; csrc/dsge_particle.cuh: the Kalman
+# filter's lanes per particle
+_WARPS = 4
+
+
+def kalman_smem_bytes(n_s: int, n_t: int) -> int:
+    """The Kalman kernel's shared memory at n_state n_s with n_t
+    observations (csrc/dsge_kernels.cu kalman_smem: the observations and
+    each warp's KalmanTile)."""
+    lanes = 2 if n_s <= 6 else 4
+    stride = (n_s * max(2 * n_s, 8) + n_s + 13) // 16 * 16 + 2
+    return 8 * (N_OBS * n_t + _WARPS * stride * (32 // lanes))
+
+
+def in_domain(n_s: int, n_k: int, n_o: int, n_t: int) -> bool:
+    """Whether the kernels take a model of these shapes with n_t
+    observations: (n_s, n_k) in SIZES, n_obs 3 and the observations within
+    the Kalman kernel's shared memory. Decided without a build."""
+    return ((n_s, n_k) in SIZES and n_o == N_OBS and n_t >= 0
+            and kalman_smem_bytes(n_s, n_t) <= _MAX_SMEM)
 
 _libs = {}          # n_state -> library
 _prepared = set()   # (n_state, device index)

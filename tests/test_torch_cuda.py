@@ -185,14 +185,45 @@ def _card_and_cpu(dev, model, params, data, n, seed):
 
 
 def test_as_2obs_likelihood_on_card_matches_cpu(dev):
-    """The Cholesky innovation path (plain PyTorch) on the card; no kernel
-    launches."""
+    """The Cholesky innovation path on the card: the general-shape kernels,
+    one launch each, none of the n_obs 3 kernels."""
+    from smc_tpu_torch.ops import cuda_dsge_general
     before = dict(cuda_dsge.LAUNCHES)
+    before_g = dict(cuda_dsge_general.LAUNCHES)
     got, want = _card_and_cpu(dev, tas.an_schorfheide_2obs(),
                               tas.an_schorfheide_parameters(),
                               tas.load_as_data()[:2], 2048, seed=4)
     assert cuda_dsge.LAUNCHES == before
+    assert {k: v - before_g[k] for k, v in
+            cuda_dsge_general.LAUNCHES.items()} == {"re_general": 1,
+                                                    "kalman_general": 1}
     assert_loglh_close(got, want)
+
+
+def test_as_plain_backend_on_card_runs_the_n_obs3_kernels(dev):
+    """AS on the "plain" backend on the card: its shape lies in the n_obs 3
+    kernels' domain, so it runs them (one launch each, none of the general
+    kernels) and gives the "kernel" backend's bits."""
+    from smc_tpu_torch.ops import cuda_dsge_general
+    th = torch.as_tensor(as_prior_draws(1024, seed=5), device=dev)
+    data = tas.load_as_data()
+    before = dict(cuda_dsge.LAUNCHES)
+    before_g = dict(cuda_dsge_general.LAUNCHES)
+    got = tas.an_schorfheide("plain").loglike_batched(th, data)
+    assert cuda_dsge_general.LAUNCHES == before_g
+    assert {k: v - before[k] for k, v in cuda_dsge.LAUNCHES.items()} == {
+        "re": 1, "kalman": 1}
+    assert torch.equal(got, tas.an_schorfheide().loglike_batched(th, data))
+
+
+def test_kalman_smem_bytes_are_the_kernels(dev):
+    """The route decides the n_obs 3 kernels' domain from its own copy of
+    the Kalman kernel's shared memory: equal to the library's."""
+    for n_s in cuda_dsge._build.DSGE_STATES:
+        lib = cuda_dsge._library(dev, n_s)
+        for n_t in (0, 1, 80, 197, 7936, 9301):
+            assert lib.smc_kalman_smem_bytes(n_s, n_t) == \
+                cuda_dsge.kalman_smem_bytes(n_s, n_t)
 
 
 def test_sw_likelihood_on_card_matches_cpu(dev):
@@ -210,6 +241,103 @@ def test_sw_likelihood_on_card_matches_cpu(dev):
     want_near = model.loglike_batched(th, sw_dsge.load_sw_data())
     assert_sw_loglh_close(np.concatenate([got, got_near.cpu().numpy()]),
                           np.concatenate([want, want_near.numpy()]))
+
+
+def _sw_inputs(dev, n=256, seed=4):
+    """n SW prior draws (made on the CPU) and the 4 near-mode draws of
+    test_sw_likelihood_on_card_matches_cpu: the system on the card."""
+    from smc_tpu_torch.models import sw_dsge
+    from smc_tpu_torch.params import ParamSpace
+    from smc_tpu_torch.rng import TorchDraws
+    th = ParamSpace(sw_dsge.sw_parameters()).sample_prior(
+        TorchDraws(seed, "cpu"), n, device="cpu")
+    near = sw_dsge.TRUE_PARAMS * (1.0 + 1e-4 * np.random.default_rng(1)
+                                  .standard_normal((4, 36)))
+    th = torch.cat([th, torch.as_tensor(near)]).to(dev)
+    d, Z, H = sw_dsge._measurement(th)
+    data = torch.as_tensor(sw_dsge.load_sw_data(), device=dev).contiguous()
+    return sw_dsge._system(th), (sw_dsge._shock_cov(th), Z, d, H, data)
+
+
+def test_general_kernels_match_plain_at_sw_shape(dev):
+    """The general-shape kernels against their plain versions on the card
+    at SW's shape (37, 7, 7): RE ok flags, X and M normwise within 1e-10,
+    the likelihood in SW's bands; one launch each."""
+    from torch_parity import normwise_rel
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    sys_t, rest = _sw_inputs(dev)
+    before = dict(g.LAUNCHES)
+    X, M, ok = g.solve_linear_re(*sys_t)
+    ll = g.kalman_chandrasekhar(X, M, *rest, ok=ok)
+    assert {k: v - before[k] for k, v in g.LAUNCHES.items()} == {
+        "re_general": 1, "kalman_general": 1}
+    Xp, Mp, okp = bl_solve_linear_re(*sys_t)
+    assert torch.equal(ok, okp)
+    assert normwise_rel(X[..., ok], Xp[..., ok]).max().item() <= 1e-10
+    assert normwise_rel(M[..., ok], Mp[..., ok]).max().item() <= 1e-10
+    want = bl_dsge_loglike(*sys_t, *rest)
+    assert_sw_loglh_close(ll.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (9, 3, 2), (17, 4, 7),
+                                   (37, 7, 3), (64, 3, 7)])
+def test_general_kernels_across_shapes_match_plain(dev, shape):
+    """Both block sizes and both innovation solves on 257 synthetic
+    systems, and a NaN particle that leaves its neighbours bitwise alone."""
+    from torch_parity import normwise_rel, synthetic_system
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    n_s, n_k, n_o = shape
+    sys_np, data = synthetic_system(n_s, n_k, 257, n_t=40, n_o=n_o)
+    A, B, C, D, Q, Z, d, H = (torch.as_tensor(x, device=dev)
+                              for x in sys_np)
+    data = torch.as_tensor(data, device=dev)
+    X, M, ok = g.solve_linear_re(A, B, C, D)
+    Xp, Mp, okp = bl_solve_linear_re(A, B, C, D)
+    assert torch.equal(ok, okp) and bool(ok.all())
+    assert normwise_rel(X, Xp).max().item() <= 1e-10
+    assert normwise_rel(M, Mp).max().item() <= 1e-10
+    ll = g.dsge_loglike(A, B, C, D, Q, Z, d, H, data)
+    assert_loglh_close(ll.cpu().numpy(),
+                       bl_dsge_loglike(A, B, C, D, Q, Z, d, H,
+                                       data).cpu().numpy())
+    A_nan = A.clone()
+    A_nan[:, :, 100] = float("nan")
+    ll2 = g.dsge_loglike(A_nan, B, C, D, Q, Z, d, H, data)
+    keep = torch.arange(257, device=dev) != 100
+    assert ll2[100].item() == float("-inf")
+    assert torch.equal(ll2[keep], ll[keep])
+
+
+def test_general_kernels_in_a_cuda_graph(dev):
+    """SW's and AS-2obs's likelihood captured in one CUDA graph (no host
+    read, no attribute set, no allocation from the host inside the calls):
+    a replay gives the eager call's bits."""
+    from smc_tpu_torch.models import sw_dsge
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    sw, as2 = sw_dsge.smets_wouters(), tas.an_schorfheide_2obs()
+    th_sw = torch.as_tensor(np.stack([sw_dsge.TRUE_PARAMS] * 3)
+                            * np.array([[1.0], [1.001], [0.999]]),
+                            device=dev)
+    th_as = torch.as_tensor(as_prior_draws(512, seed=8), device=dev)
+    data_sw, data_as = sw_dsge.load_sw_data(), tas.load_as_data()[:2]
+    call = lambda: (sw.loglike_batched(th_sw, data_sw),
+                    as2.loglike_batched(th_as, data_as))
+    eager = call()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = dict(g.LAUNCHES)
+    with torch.cuda.graph(graph):
+        out = call()
+    assert {k: v - before[k] for k, v in g.LAUNCHES.items()} == {
+        "re_general": 2, "kalman_general": 2}
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
+    assert bool(torch.isfinite(eager[0]).all())
 
 
 def test_one_rank_nccl_mesh_matches_unsharded(dev, tmp_path):

@@ -1,0 +1,368 @@
+"""The general-shape DSGE kernels' block bodies (csrc/dsge_general.cuh),
+compiled for the host with g++ through csrc/dsge_general_cpu.cpp, against
+the JAX package's batch-last likelihood (smc_tpu/models/dsge.py
+bl_solve_linear_re, bl_kalman_loglike_chandrasekhar) at Smets-Wouters' and
+AS-2obs's shapes, and against the port's plain versions (models/dsge.py
+bl_*) at synthetic shapes. The host build runs each particle's block of
+threads phase by phase (lanes.cuh), so this is the CPU's view of the card's
+arithmetic, pivoting and exits; the kernels themselves run only on the card
+(tests/test_torch_cuda.py, chip_smoke.py). Also here: the likelihood route
+of LinearDSGE as a function of shapes and flags, the tile sizes the route
+is decided on, and the wrappers' CPU path."""
+
+import ctypes
+import shutil
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax
+import jax.numpy as jnp
+
+from smc_tpu.models import as_dsge as jas
+from smc_tpu.models import sw_dsge as jsw
+from smc_tpu.models.dsge import (bl_solve_linear_re as jax_solve,
+                                 bl_kalman_loglike_chandrasekhar as jax_chand)
+from smc_tpu.params import ParamSpace as JParamSpace
+
+from smc_tpu_torch import _build
+from smc_tpu_torch.models import as_dsge as tas
+from smc_tpu_torch.models import sw_dsge as tsw
+from smc_tpu_torch.models.dsge import (bl_dsge_loglike, bl_solve_linear_re,
+                                       bl_kalman_loglike_chandrasekhar,
+                                       likelihood_route)
+from smc_tpu_torch.ops import cuda_dsge_general
+
+from test_torch_cuda import assert_sw_loglh_close
+from torch_parity import (as_prior_draws, assert_loglh_close, normwise_rel,
+                          synthetic_system)
+
+XM_RTOL = 1e-10     # X and M, normwise per particle
+
+
+class _Body:
+    """The host build of the block bodies, loaded once."""
+
+    def __init__(self):
+        lib = ctypes.CDLL(str(_build.build_general_cpu_library()))
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.smc_general_re_cpu.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
+                                           ctypes.c_double]
+        lib.smc_general_re_cpu.restype = I
+        lib.smc_general_kalman_cpu.argtypes = [I, I, I, P, P, P, P, P, P, P,
+                                               I, P, L, I, P]
+        lib.smc_general_kalman_cpu.restype = I
+        lib.smc_general_re_smem_cpu.argtypes = [I, I]
+        lib.smc_general_re_smem_cpu.restype = L
+        lib.smc_general_kalman_smem_cpu.argtypes = [I, I, I, I]
+        lib.smc_general_kalman_smem_cpu.restype = L
+        lib.smc_general_gj_cpu.argtypes = [I, I, P, P]
+        lib.smc_general_gj_cpu.restype = I
+        self.lib = lib
+
+    def re(self, A, B, C, D):
+        n_s, n_k, n = A.shape[0], D.shape[1], A.shape[-1]
+        X = torch.empty((n_s, n_s, n), dtype=torch.float64)
+        M = torch.empty((n_s, n_k, n), dtype=torch.float64)
+        ok = torch.empty(n, dtype=torch.bool)
+        rc = self.lib.smc_general_re_cpu(
+            n_s, n_k, A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+            X.data_ptr(), M.data_ptr(), ok.data_ptr(), n, 16, 1e-8)
+        assert rc == 0
+        return X, M, ok
+
+    def kalman(self, X, M, Q, Z, d, H, data, ok):
+        n = X.shape[-1]
+        out = torch.empty(n, dtype=torch.float64)
+        rc = self.lib.smc_general_kalman_cpu(
+            X.shape[0], M.shape[1], Z.shape[0], X.data_ptr(), M.data_ptr(),
+            Q.data_ptr(), Z.data_ptr(), d.data_ptr(), H.data_ptr(),
+            data.data_ptr(), data.shape[1], ok.data_ptr(), n, 30,
+            out.data_ptr())
+        assert rc == 0
+        return out
+
+    def loglike(self, A, B, C, D, Q, Z, d, H, data):
+        X, M, ok = self.re(A, B, C, D)
+        return X, M, ok, self.kalman(X, M, Q, Z, d, H, data, ok)
+
+
+@pytest.fixture(scope="module")
+def body():
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the host version of the block bodies")
+    return _Body()
+
+
+def _t(*xs):
+    return [torch.as_tensor(np.array(x)).contiguous() for x in xs]
+
+
+@pytest.fixture(scope="module")
+def sw_case():
+    """tests/test_torch_sw.py's 21 draws (TRUE_PARAMS, 16 prior draws of
+    the JAX package's sampler, 4 within 1e-4 of TRUE_PARAMS), their system
+    through the JAX package, and its batch-last RE solve and Chandrasekhar
+    likelihood on the committed data."""
+    draws = np.asarray(JParamSpace(jsw.sw_parameters()).sample_prior(
+        jax.random.PRNGKey(0), 16))
+    near = jsw.TRUE_PARAMS * (1.0 + 1e-4 * np.random.default_rng(1)
+                              .standard_normal((4, 36)))
+    th = jnp.asarray(np.vstack([jsw.TRUE_PARAMS[None], draws, near]))
+    bl = lambda x: jnp.moveaxis(x, 0, -1)
+    A, B, C, D = (bl(m) for m in jax.vmap(jsw._system)(th))
+    d, Z, H = (bl(m) for m in jax.vmap(jsw._measurement)(th))
+    Q = bl(jax.vmap(jsw._shock_cov)(th))
+    data = tsw.load_sw_data()
+    X, M, ok = jax.jit(jax_solve)(A, B, C, D)
+    ll = jax.jit(jax_chand)(X, M, Q, Z, d, H, jnp.asarray(data))
+    ll = jnp.where(ok, ll, -jnp.inf)
+    return dict(sys=_t(A, B, C, D), rest=_t(Q, Z, d, H, data),
+                X=np.asarray(X), M=np.asarray(M), ok=np.asarray(ok),
+                ll=np.asarray(ll))
+
+
+def test_sw_solve_matches_jax(body, sw_case):
+    X, M, ok = body.re(*sw_case["sys"])
+    np.testing.assert_array_equal(ok.numpy(), sw_case["ok"])
+    assert 10 < int(ok.sum()) <= 21
+    for got, key in ((X, "X"), (M, "M")):
+        want = torch.as_tensor(sw_case[key])
+        assert normwise_rel(got[..., ok], want[..., ok]).max() <= XM_RTOL
+        assert not got[..., ~ok].any()
+
+
+def test_sw_likelihood_matches_jax(body, sw_case):
+    *_, ll = body.loglike(*sw_case["sys"], *sw_case["rest"])
+    assert_sw_loglh_close(ll.numpy(), sw_case["ll"])
+    assert np.isfinite(ll[0].item()) and ll[0].item() > -1e3
+
+
+def test_sw_passive_policy_is_rejected(body):
+    theta = tsw.TRUE_PARAMS.copy()
+    theta[10], theta[12], theta[13] = 0.5, 0.001, 0.001
+    th = torch.as_tensor(np.stack([tsw.TRUE_PARAMS, theta]))
+    sys_t = tsw._system(th)
+    d, Z, H = tsw._measurement(th)
+    rest = (tsw._shock_cov(th), Z, d, H,
+            torch.as_tensor(tsw.load_sw_data()))
+    X, M, ok, ll = body.loglike(*sys_t, *rest)
+    assert ok.tolist() == [True, False]
+    assert ll[1].item() == float("-inf") and np.isfinite(ll[0].item())
+    assert not X[..., 1].any() and not M[..., 1].any()
+    assert not bool(bl_solve_linear_re(*sys_t)[2][1])
+
+
+def _as2_case(n, seed):
+    th = as_prior_draws(n, seed=seed)
+    tt = torch.as_tensor(th)
+    d, Z, H = tas._measurement_2obs(tt)
+    data = torch.as_tensor(tas.load_as_data()[:2]).contiguous()
+    return th, tas._system(tt), (tas._shock_cov(tt), Z, d, H, data)
+
+
+def test_as2obs_likelihood_matches_jax(body):
+    th, sys_t, rest = _as2_case(96, seed=7)
+    *_, ll = body.loglike(*sys_t, *rest)
+    model = jas.an_schorfheide_2obs()
+    want = jax.jit(lambda t: model.loglike_batched(
+        t, jnp.asarray(tas.load_as_data()[:2])))(jnp.asarray(th))
+    assert_loglh_close(ll.numpy(), np.asarray(want))
+    assert int(torch.isfinite(ll).sum()) > 48
+
+
+@pytest.mark.parametrize("n_o", [1, 2, 3, 7])
+@pytest.mark.parametrize("n_s", [1, 6, 9, 37])
+def test_synthetic_shapes_match_plain(body, n_s, n_o):
+    """Both innovation solves (the cofactor form at n_obs 3, Cholesky
+    otherwise), both block sizes (n_state <= 16 and beyond)."""
+    n = 6 if n_s == 37 else 24
+    sys_np, data_np = synthetic_system(n_s, 3, n, n_t=30, n_o=n_o)
+    A, B, C, D, Q, Z, d, H = _t(*sys_np)
+    data = torch.as_tensor(data_np)
+    X, M, ok, ll = body.loglike(A, B, C, D, Q, Z, d, H, data)
+    Xp, Mp, okp = bl_solve_linear_re(A, B, C, D)
+    assert bool(ok.all()) and bool(okp.all())
+    assert normwise_rel(X, Xp).max() <= XM_RTOL
+    assert normwise_rel(M, Mp).max() <= XM_RTOL
+    want = bl_kalman_loglike_chandrasekhar(Xp, Mp, Q, Z, d, H, data)
+    assert_loglh_close(ll.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("n", [1, 3, 257])
+def test_ragged_n_matches_plain(body, n):
+    """One block per particle: any particle count, each particle alone."""
+    _, sys_t, rest = _as2_case(n, seed=30 + n)
+    X, M, ok, ll = body.loglike(*sys_t, *rest)
+    Xp, Mp, okp = bl_solve_linear_re(*sys_t)
+    assert torch.equal(ok, okp)
+    if ok.any():
+        assert normwise_rel(X[..., ok], Xp[..., ok]).max() <= XM_RTOL
+    want = bl_dsge_loglike(*sys_t, *rest)
+    if torch.isfinite(want).any():
+        assert_loglh_close(ll.numpy(), want.numpy())
+    else:
+        assert not torch.isfinite(ll).any()
+
+
+@pytest.mark.parametrize("n_o", [2, 3, 7])
+def test_nan_and_non_pd_particles_are_isolated(body, n_o):
+    """A NaN particle (RE solve) and a particle whose innovation covariance
+    is negative definite (H = -10 I: the Cholesky factorization fails, or
+    at n_obs 3 det F < 0) give -inf; their neighbours are bitwise those of
+    the run without them."""
+    sys_np, data_np = synthetic_system(5, 2, 12, n_t=20, n_o=n_o)
+    A, B, C, D, Q, Z, d, H = _t(*sys_np)
+    data = torch.as_tensor(data_np)
+    *_, ll = body.loglike(A, B, C, D, Q, Z, d, H, data)
+    j_nan, j_pd = 4, 7
+    A2, H2 = A.clone(), H.clone()
+    A2[:, :, j_nan] = float("nan")
+    H2[:, :, j_pd] = -10.0 * torch.eye(n_o, dtype=torch.float64)
+    X2, M2, ok2, ll2 = body.loglike(A2, B, C, D, Q, Z, d, H2, data)
+    keep = torch.ones(12, dtype=torch.bool)
+    keep[[j_nan, j_pd]] = False
+    assert not bool(ok2[j_nan]) and bool(ok2[j_pd])
+    assert ll2[j_nan].item() == ll2[j_pd].item() == float("-inf")
+    assert torch.equal(ll2[keep], ll[keep])
+    assert bool(torch.isfinite(ll[keep]).all())
+    want = bl_dsge_loglike(A2, B, C, D, Q, Z, d, H2, data)
+    assert want[j_nan].item() == want[j_pd].item() == float("-inf")
+
+
+def _gj_serial(W, n):
+    """Gauss-Jordan with the serial pivot rule (the first maximal |entry|
+    at or below the diagonal, as bl_gj_solve's argmax), in the kernel's
+    operation order: (pivot rows, the solution columns)."""
+    W = W.copy()
+    pivots = []
+    for k in range(n):
+        p = k + int(np.argmax(np.abs(W[k:, k])))
+        pivots.append(p)
+        piv = W[p, k]
+        row = W[p, k + 1:].copy()
+        if p != k:
+            W[p, k + 1:] = W[k, k + 1:]
+        col = W[:, k].copy()
+        col[p] = W[k, k]
+        fac = col / piv
+        for i in range(W.shape[0]):
+            if i != k:
+                W[i, k + 1:] = W[i, k + 1:] - fac[i] * row
+        W[k, k + 1:] = row / piv
+    return pivots, W[:, n:]
+
+
+@pytest.mark.parametrize("n,w,seed", [(5, 10, 0), (16, 48, 1), (37, 111, 2),
+                                      (64, 192, 3)])
+def test_tied_pivots_follow_the_serial_rule(body, n, w, seed):
+    """Entries in {-2, ..., 2} tie in magnitude at most pivot steps; a tie
+    at rows 10 and 40 of the first column (lanes 10 and 8 of the warp) and
+    at rows 3 and 35 (lane 3 twice) must pick the smaller row. Pivot rows
+    and solution are the serial rule's, bit for bit."""
+    rng = np.random.default_rng(seed)
+    W = rng.integers(-2, 3, size=(n, w)).astype(np.float64)
+    if n == 64:
+        W[:, 0] = 1.0
+        W[10, 0], W[40, 0] = -9.0, 9.0
+        W[:, 1] = 1.0
+        W[3, 1], W[35, 1] = 9.0, -9.0
+    want_piv, want = _gj_serial(W, n)
+    if n == 64:
+        assert want_piv[:2] == [10, 3]
+    got = np.ascontiguousarray(W)
+    piv = np.zeros(n, dtype=np.int32)
+    assert body.lib.smc_general_gj_cpu(
+        n, w, got.ctypes.data, piv.ctypes.data) == 0
+    assert piv.tolist() == want_piv
+    assert sum(p != k for k, p in enumerate(want_piv)) > 0
+    assert np.isfinite(want).all()
+    np.testing.assert_array_equal(got[:, n:], want)
+
+
+@pytest.mark.parametrize("n_s,n_k,n_o,n_t", [
+    (1, 1, 1, 0), (6, 3, 2, 80), (17, 8, 3, 40), (37, 7, 7, 156),
+    (37, 7, 7, 197), (64, 64, 16, 300), (64, 64, 16, 400), (64, 65, 1, 1),
+    (65, 7, 7, 10), (8, 2, 17, 10)])
+def test_tile_sizes_are_the_kernels(body, n_s, n_k, n_o, n_t):
+    """The wrapper decides a shape's route from its own copy of the tiles'
+    sizes: equal to the library's, and the domain is where they fit."""
+    in_max = n_s <= 64 and n_k <= 64 and n_o <= 16
+    re = body.lib.smc_general_re_smem_cpu(n_s, n_k)
+    kal = body.lib.smc_general_kalman_smem_cpu(n_s, n_k, n_o, n_t)
+    if in_max:
+        assert re == cuda_dsge_general.re_smem_bytes(n_s, n_k)
+        assert kal == cuda_dsge_general.kalman_smem_bytes(n_s, n_k, n_o, n_t)
+    else:
+        assert kal == -1
+    assert cuda_dsge_general.in_domain(n_s, n_k, n_o, n_t) == (
+        in_max and kal <= cuda_dsge_general.SMEM_LIMIT
+        and re <= cuda_dsge_general.SMEM_LIMIT)
+
+
+def test_domain_covers_the_models():
+    assert cuda_dsge_general.in_domain(37, 7, 7, 156)      # SW
+    assert cuda_dsge_general.in_domain(37, 7, 7, 197)      # SW, real data
+    assert cuda_dsge_general.in_domain(6, 3, 2, 80)        # AS-2obs
+    assert not cuda_dsge_general.in_domain(64, 64, 16, 400)
+    assert not cuda_dsge_general.in_domain(65, 3, 3, 10)
+
+
+@pytest.mark.parametrize("backend,chand,device,shape,want", [
+    ("plain", True, "cuda", (37, 7, 7, 156), "general"),      # SW
+    ("xla", True, "cuda", (37, 7, 7, 156), "general"),
+    ("plain", True, "cuda", (6, 3, 2, 80), "general"),        # AS-2obs
+    ("plain", True, "cuda", (6, 3, 3, 80), "kernel"),         # AS on plain
+    ("plain", True, "cuda", (8, 8, 3, 80), "kernel"),
+    ("plain", True, "cuda", (6, 3, 3, 7936), "kernel"),       # longest data
+    ("plain", True, "cuda", (6, 3, 3, 7937), "general"),
+    ("plain", True, "cuda", (6, 3, 3, 9580), "plain"),
+    ("plain", True, "cuda", (9, 3, 3, 80), "general"),        # n_state 9
+    ("plain", True, "cuda", (6, 9, 3, 80), "general"),        # n_shock 9
+    ("plain", False, "cuda", (6, 3, 3, 80), "plain"),         # Riccati
+    ("plain", True, "cpu", (6, 3, 3, 80), "plain"),
+    ("plain", False, "cuda", (37, 7, 7, 156), "plain"),       # Riccati
+    ("plain", True, "cuda", (65, 7, 7, 156), "plain"),        # n_state
+    ("plain", True, "cuda", (37, 7, 17, 156), "plain"),       # n_obs
+    ("plain", True, "cuda", (37, 7, 7, 100_000), "plain"),    # observations
+    ("plain", True, "cpu", (37, 7, 7, 156), "plain"),
+    ("plain", True, "cpu", (6, 3, 2, 80), "plain"),
+    ("kernel", True, "cuda", (6, 3, 3, 80), "kernel"),
+    ("pallas", True, "cuda", (6, 3, 3, 80), "kernel"),
+    ("kernel", True, "cpu", (6, 3, 3, 80), "kernel"),
+])
+def test_likelihood_route(backend, chand, device, shape, want):
+    assert likelihood_route(backend, chand, device, *shape) == want
+
+
+def test_models_on_cpu_launch_no_kernel():
+    for k in cuda_dsge_general.LAUNCHES:
+        cuda_dsge_general.LAUNCHES[k] = 0
+    th = torch.as_tensor(np.stack([tsw.TRUE_PARAMS] * 2))
+    tsw.smets_wouters().loglike_batched(th, tsw.load_sw_data())
+    tas.an_schorfheide_2obs().loglike_batched(
+        torch.as_tensor(as_prior_draws(4, seed=2)), tas.load_as_data()[:2])
+    assert cuda_dsge_general.LAUNCHES == {"re_general": 0,
+                                          "kalman_general": 0}
+
+
+def test_wrappers_on_cpu_are_the_plain_versions():
+    _, sys_t, rest = _as2_case(16, seed=5)
+    X, M, ok = cuda_dsge_general.solve_linear_re(*sys_t)
+    Xp, Mp, okp = bl_solve_linear_re(*sys_t)
+    assert torch.equal(X, Xp) and torch.equal(M, Mp) and torch.equal(ok, okp)
+    assert torch.equal(cuda_dsge_general.dsge_loglike(*sys_t, *rest),
+                       bl_dsge_loglike(*sys_t, *rest))
+
+
+def test_wrappers_refuse_other_devices_and_shapes():
+    A = torch.zeros((6, 6, 4), device="meta", dtype=torch.float64)
+    D = torch.zeros((6, 3, 4), device="meta", dtype=torch.float64)
+    with pytest.raises(ValueError, match="no kernel for tensors on meta"):
+        cuda_dsge_general.solve_linear_re(A, A, A, D)
+    big = torch.zeros((65, 65, 2), dtype=torch.float64)
+    with pytest.raises(ValueError, match="no general kernel"):
+        cuda_dsge_general.solve_linear_re(big, big, big, big[:, :3])

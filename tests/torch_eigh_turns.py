@@ -49,7 +49,8 @@ def build_other(csrc: Path, two_part: bool):
     if csrc == _build.CSRC:
         out = _build.build_cuda_library("eigh")
     else:
-        out = build_tree(csrc, "eigh_kernel.cu", "libsmc_eigh_other")
+        out = build_tree(csrc, "eigh_kernel.cu", "libsmc_eigh_other",
+                         _build.CUDA_LIBRARIES["eigh"][2])
     return _launcher(ctypes.CDLL(str(out)), csrc, two_part), out
 
 

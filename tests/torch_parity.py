@@ -105,15 +105,15 @@ class StubMesh:
 SYNTHETIC_T = 80
 
 
-def synthetic_system(n_s, n_k, n, seed=5, n_t=SYNTHETIC_T):
-    """n stable linear-RE systems at (n_s, n_k) with three observables,
-    drawn with numpy from `seed` (the 3-state system of the kernel tests,
-    widened): X = diag(rho) + E, rho ~ U(0.2, 0.7), and B = I + E', a
-    forward-looking C, A = -(B X + C X^2), so that X solves the system;
-    D = -(I + 0.3 G), Q = S S'/n_k + I/2, Z = 1.5 I + 0.3 G, H = 0.1 I, E, E'
-    and C of scale 0.1/sqrt(n_s). Returns the batch-last float64 arrays
-    (A, B, C, D, Q, Z, d, H) and data [3, n_t], the first n_t observations
-    of a standard normal series drawn from `seed`."""
+def synthetic_system(n_s, n_k, n, seed=5, n_t=SYNTHETIC_T, n_o=3):
+    """n stable linear-RE systems at (n_s, n_k) with n_o observables (three
+    unless told otherwise), drawn with numpy from `seed` (the 3-state system
+    of the kernel tests, widened): X = diag(rho) + E, rho ~ U(0.2, 0.7), and
+    B = I + E', a forward-looking C, A = -(B X + C X^2), so that X solves
+    the system; D = -(I + 0.3 G), Q = S S'/n_k + I/2, Z = 1.5 I + 0.3 G,
+    H = 0.1 I, E, E' and C of scale 0.1/sqrt(n_s). Returns the batch-last
+    float64 arrays (A, B, C, D, Q, Z, d, H) and data [n_o, n_t], the first
+    n_t observations of a standard normal series drawn from `seed`."""
     rng = np.random.default_rng([seed, n_s, n_k])
     s = 0.1 / np.sqrt(n_s)
     g = lambda *shape: rng.standard_normal((n, *shape))
@@ -125,11 +125,11 @@ def synthetic_system(n_s, n_k, n, seed=5, n_t=SYNTHETIC_T):
     D = -(np.eye(n_s, n_k) + 0.3 * g(n_s, n_k))
     S = g(n_k, n_k)
     Q = S @ S.transpose(0, 2, 1) / n_k + 0.5 * np.eye(n_k)
-    Z = 1.5 * np.eye(3, n_s) + 0.3 * g(3, n_s)
-    d = 0.1 * g(3)
-    H = np.broadcast_to(0.1 * np.eye(3), (n, 3, 3))
+    Z = 1.5 * np.eye(n_o, n_s) + 0.3 * g(n_o, n_s)
+    d = 0.1 * g(n_o)
+    H = np.broadcast_to(0.1 * np.eye(n_o), (n, n_o, n_o))
     last = lambda x: np.ascontiguousarray(np.moveaxis(x, 0, -1))
-    data = np.random.default_rng(seed).standard_normal((3, SYNTHETIC_T))
+    data = np.random.default_rng(seed).standard_normal((n_o, SYNTHETIC_T))
     return ((last(A), last(B), last(C), last(D), last(Q), last(Z), last(d),
              last(H)), np.ascontiguousarray(data[:, :n_t]))
 
