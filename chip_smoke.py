@@ -43,8 +43,6 @@ mesh on the card runs the host loop, by the same choice; (d) checkpoints,
 so it runs the host loop too.
 
     python3 chip_smoke.py                 # all phases
-    python3 chip_smoke.py --profile DIR   # also profile AS, adaptive AS,
-                                          # the linear fixture and SW
     python3 chip_smoke.py --mesh-only     # the build, the AS main path and
                                           # phase (i) alone (i.3 on every
                                           # card: --chips 4)
@@ -2387,45 +2385,8 @@ def eigh_phase(dev, clouds):
     return entry
 
 
-def profile_path(out_dir, name, run):
-    """Profile one run with torch.profiler: device busy time (the sum of
-    the device-side events: one stream, so they do not overlap) against
-    wall time, and the kernels that take the device's time; the table goes
-    to DIR/profile_<name>.txt."""
-    import torch
-    from torch.profiler import profile, ProfilerActivity
-    from torch.autograd import DeviceType
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, wall = _timed(run)
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            t, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    busy = sum(t for t, _ in kernels.values()) / 1e6
-    print(f"# profile {name}: wall {wall:.4f} s (under the profiler), device "
-          f"busy {busy:.4f} s, idle share {1.0 - busy / wall:.4f}")
-    rows = sorted(kernels.items(), key=lambda kv: -kv[1][0])
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
-        f.write(f"{smi_line()}\nwall {wall} s, device busy {busy} s\n")
-        for kname, (t, n) in rows:
-            f.write(f"{t / 1e3:12.3f} ms {n:7d}x  {kname}\n")
-        f.write(prof.key_averages().table(sort_by="cpu_time_total",
-                                          row_limit=40))
-    for kname, (t, n) in rows[:8]:
-        print(f"# profile {name} {t / 1e3:10.3f} ms {n:6d}x  {kname[:80]}")
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also profile one more run each of AS-16k, the "
-                         "linear fixture, adaptive AS-16k and one stage of "
-                         "SW-4k, and write their tables to DIR")
     ap.add_argument("--mesh-only", action="store_true",
                     help="run the kernel build, the AS main path and phase "
                          "(i) only (the particle mesh; on a machine with "
@@ -2472,25 +2433,12 @@ def main(argv=None) -> int:
     launches, res_as, wall_as = main_path(dev)
     lin, res_a, wall_a = linear_phase(dev)
     res_b, wall_b = adaptive_phase(dev)
-    if args.profile:
-        import smc_tpu_torch
-        from smc_tpu_torch.models.linear import linear_parameters
-        run_as = as_runner(dev)
-        profile_path(args.profile, "as16k", lambda: run_as(seed=0))
-        profile_path(args.profile, "as16k_adaptive",
-                     lambda: run_as(seed=0, **ADAPTIVE))
-        profile_path(args.profile, "linear32k", lambda: smc_tpu_torch.smc(
-            lin[2], linear_parameters(), lin[0], **LIN_CONFIG, seed=0,
-            device=dev))
     res_c, wall_c, chain_launches = metropolis_phase(dev, lin)
     chain = chain_phase(dev, [("linear-32k", res_c), ("AS-16k", res_as)],
                         chain_launches)
     checkpoint_phase(dev, lin, res_a)
     tempered_phase(dev, lin)
     sw_launches = sw_phase(dev)
-    if args.profile:
-        _, _, run_sw = sw_runner(dev)
-        profile_path(args.profile, "sw4k", lambda: run_sw(seed=0, n_phi=2))
     res_g, wall_g = as2obs_phase(dev)
     capm_phase(dev)
     mesh_phase(dev, res_as, wall_as)

@@ -4,7 +4,8 @@ redraw-until-valid, and the likelihood re-evaluation of a tempered update.
 `initial_draw` runs masked redraw rounds on the host: draw all N, evaluate
 them in one batched likelihood call, then redraw and evaluate only the
 invalid rows, until every particle has a finite likelihood and prior. Each
-round is one likelihood call and one host read of the invalid count.
+round is one likelihood call and one host read of the invalid count, in a
+span `smc.init.round` (tracing.py).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Callable, Tuple
 import torch
 
 from smc_tpu_torch.cloud import Cloud
+from smc_tpu_torch.tracing import span
 from smc_tpu_torch.utils.misc import scrub_loglh
 
 
@@ -38,13 +40,14 @@ def initial_draw(draws, space, loglike_batched: Callable, n_parts: int,
     rows; each redraw round then draws and evaluates the fresh rows on
     every rank, as the one-device run does, and the rank returns its rows
     of the cloud after the same number of rounds."""
-    params = space.sample_prior(draws, n_parts, device=device)
-    if sharding is None:
-        loglh, logprior = _eval_batch(space, loglike_batched, params)
-    else:
-        loglh, logprior = sharding.gather(*_eval_batch(
-            space, loglike_batched, params[sharding.rows(n_parts)]))
-    invalid = torch.nonzero(~torch.isfinite(loglh)).flatten()
+    with span("smc.init.round"):
+        params = space.sample_prior(draws, n_parts, device=device)
+        if sharding is None:
+            loglh, logprior = _eval_batch(space, loglike_batched, params)
+        else:
+            loglh, logprior = sharding.gather(*_eval_batch(
+                space, loglike_batched, params[sharding.rows(n_parts)]))
+        invalid = torch.nonzero(~torch.isfinite(loglh)).flatten()
     rounds = 0
     while invalid.numel() > 0:
         rounds += 1
@@ -53,12 +56,13 @@ def initial_draw(draws, space, loglike_batched: Callable, n_parts: int,
                 f"initial_draw: {invalid.numel()}/{n_parts} particles still "
                 f"invalid after {max_rounds} redraw rounds: the prior puts "
                 "almost no mass where the likelihood is finite")
-        fresh = space.sample_prior(draws, invalid.numel(), device=device)
-        l_new, lp_new = _eval_batch(space, loglike_batched, fresh)
-        params[invalid] = fresh
-        loglh[invalid] = l_new
-        logprior[invalid] = lp_new
-        invalid = invalid[~torch.isfinite(l_new)]
+        with span("smc.init.round"):
+            fresh = space.sample_prior(draws, invalid.numel(), device=device)
+            l_new, lp_new = _eval_batch(space, loglike_batched, fresh)
+            params[invalid] = fresh
+            loglh[invalid] = l_new
+            logprior[invalid] = lp_new
+            invalid = invalid[~torch.isfinite(l_new)]
     cloud = Cloud.create(space.n_para, n_parts, device=device)
     cloud.params, cloud.loglh, cloud.logprior = params, loglh, logprior
     return (cloud if sharding is None else sharding.shard(cloud)), rounds

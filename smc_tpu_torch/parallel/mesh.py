@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from smc_tpu_torch.cloud import Cloud, ARRAY_FIELDS
+from smc_tpu_torch.tracing import span
 
 PARTICLE_AXIS = "parts"
 
@@ -161,20 +162,23 @@ class ParticleSharding:
         """The all-gather along the particle axis: f64 tensors [N/R, ...]
         of this rank -> [N, ...], in one collective (one packed send buffer
         into one preallocated [N, cols] output). One tensor in, one out;
-        several in, a tuple out."""
-        n = xs[0].shape[0]
-        flat = [x.reshape(n, -1) for x in xs]
-        send = (flat[0] if len(flat) == 1 else torch.cat(flat, 1)).contiguous()
-        full = send.new_empty((self.world * n, send.shape[1]))
-        _all_gather_single(full, send, group=self.group)
-        self.counts["collectives"] += 1
-        self.counts["bytes"] += ((self.world - 1) * send.numel()
-                                 * send.element_size())
-        out, col = [], 0
-        for x, f in zip(xs, flat):
-            out.append(full[:, col:col + f.shape[1]].reshape(
-                (n * self.world,) + tuple(x.shape[1:])))
-            col += f.shape[1]
+        several in, a tuple out. Span `smc.gather` where it runs on the
+        host (not inside a graph replay)."""
+        with span("smc.gather"):
+            n = xs[0].shape[0]
+            flat = [x.reshape(n, -1) for x in xs]
+            send = (flat[0] if len(flat) == 1
+                    else torch.cat(flat, 1)).contiguous()
+            full = send.new_empty((self.world * n, send.shape[1]))
+            _all_gather_single(full, send, group=self.group)
+            self.counts["collectives"] += 1
+            self.counts["bytes"] += ((self.world - 1) * send.numel()
+                                     * send.element_size())
+            out, col = [], 0
+            for x, f in zip(xs, flat):
+                out.append(full[:, col:col + f.shape[1]].reshape(
+                    (n * self.world,) + tuple(x.shape[1:])))
+                col += f.shape[1]
         return out[0] if len(out) == 1 else tuple(out)
 
     def shard(self, cloud: Cloud) -> Cloud:

@@ -28,6 +28,10 @@ the all-gather of the acceptance after the mutation. The fused recursion
 captures them with the stage (NCCL); every rank issues the same number of
 stages, because its stop rule waits on the done flag of a fixed stage and
 never polls.
+
+While a torch profiler records, the call opens the spans of tracing.py at
+its layer boundaries (`smc.estimation`, `smc.init`, `smc.chunk`, ...); no
+span opens around a graph replay.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ from smc_tpu_torch.cloud import (Cloud, ARRAY_FIELDS, weighted_mean,
                                  weighted_cov, weighted_std)
 from smc_tpu_torch.params import ParamSpace
 from smc_tpu_torch.rng import TorchDraws, ParticleDraws, ReplayDraws
+from smc_tpu_torch.tracing import span
 from smc_tpu_torch.ops import (cuda_dsge, cuda_dsge_general, cuda_eigh,
                                cuda_metropolis)
 from smc_tpu_torch.ops.correction import correct
@@ -160,36 +165,42 @@ def make_stage_core(space, loglike_batched, n_blocks, n_mh_steps, alpha,
 
     def stage(draws, params, loglh, logprior, old_loglh, weights,
               phi_n, phi_n1, c):
-        inc_w, norm_w, ess, mdd_inc = correct(loglh, old_loglh, weights,
-                                              phi_n, phi_n1, omega,
-                                              log_prob_old_data)
+        with span("smc.correction"):
+            inc_w, norm_w, ess, mdd_inc = correct(loglh, old_loglh, weights,
+                                                  phi_n, phi_n1, omega,
+                                                  log_prob_old_data)
         n = loglh.shape[0]
         dev = params.device
         rows = slice(None) if sharding is None else sharding.rows(n)
-        do_resample = ess < threshold
-        if resampling_method == "metropolis":
-            idx, doeblin = metropolis_adaptive(draws, norm_w,
-                                               flag=do_resample)
-        else:
-            idx = torch.where(do_resample,
-                              resample_indices(draws, norm_w,
-                                               method=resampling_method),
-                              torch.arange(n, device=dev))
-            doeblin = torch.zeros_like(ess)
-        params, loglh = params.index_select(0, idx), loglh.index_select(0, idx)
-        logprior = logprior.index_select(0, idx)
-        old_loglh = old_loglh.index_select(0, idx)
-        weights = torch.where(do_resample, 1.0, norm_w)
-        vals = params.index_select(1, space.tensors(dev)["free_inds"])
-        mu = weighted_mean(vals, weights)
-        cov = weighted_cov(vals, weights)
-        cov = 0.5 * (cov + cov.T)
-        perm = draws.permutation(space.n_free)
-        mdraws = draws if sharding is None else ParticleDraws(draws, rows, n)
-        params, loglh, logprior, old_loglh, accept = mutation_step(
-            mdraws, params[rows], loglh[rows], logprior[rows],
-            old_loglh[rows], mu, cov, perm, c, phi_n, phi_n1)
-        accept_all = accept if sharding is None else sharding.gather(accept)
+        with span("smc.selection"):
+            do_resample = ess < threshold
+            if resampling_method == "metropolis":
+                idx, doeblin = metropolis_adaptive(draws, norm_w,
+                                                   flag=do_resample)
+            else:
+                idx = torch.where(do_resample,
+                                  resample_indices(draws, norm_w,
+                                                   method=resampling_method),
+                                  torch.arange(n, device=dev))
+                doeblin = torch.zeros_like(ess)
+            params = params.index_select(0, idx)
+            loglh = loglh.index_select(0, idx)
+            logprior = logprior.index_select(0, idx)
+            old_loglh = old_loglh.index_select(0, idx)
+            weights = torch.where(do_resample, 1.0, norm_w)
+        with span("smc.mutation"):
+            vals = params.index_select(1, space.tensors(dev)["free_inds"])
+            mu = weighted_mean(vals, weights)
+            cov = weighted_cov(vals, weights)
+            cov = 0.5 * (cov + cov.T)
+            perm = draws.permutation(space.n_free)
+            mdraws = (draws if sharding is None
+                      else ParticleDraws(draws, rows, n))
+            params, loglh, logprior, old_loglh, accept = mutation_step(
+                mdraws, params[rows], loglh[rows], logprior[rows],
+                old_loglh[rows], mu, cov, perm, c, phi_n, phi_n1)
+            accept_all = (accept if sharding is None
+                          else sharding.gather(accept))
         return (params, loglh, logprior, old_loglh, weights[rows], accept,
                 inc_w, weights, ess, do_resample, torch.mean(accept_all),
                 mdd_inc, doeblin)
@@ -335,10 +346,12 @@ class FusedRecursion:
     def run_stage(self):
         self.calls += 1
         if self.device.type != "cuda" or self.calls == 1:
-            self.body()
+            with span("smc.stage"):
+                self.body()
             return
         if self.graph is None:
-            self._capture()
+            with span("smc.capture"):
+                self._capture()
         self.graph.replay()
         _add_counts(self.counters, self._per_replay)
 
@@ -365,10 +378,11 @@ class FusedRecursion:
         """The chunk's traces and the state's flags in one blocking read:
         (n_in_chunk, traces {TRACE_KEYS: list}, nan_ess, done)."""
         b = self.buffers
-        flat = torch.cat([self.scalars.flatten(),
-                          torch.stack([b["k"].to(_F64),
-                                       b["nan_ess"].to(_F64),
-                                       b["done"].to(_F64)])]).tolist()
+        with span("smc.read"):
+            flat = torch.cat([self.scalars.flatten(),
+                              torch.stack([b["k"].to(_F64),
+                                           b["nan_ess"].to(_F64),
+                                           b["done"].to(_F64)])]).tolist()
         n_in, nan_ess, done = flat[-3:]
         rows = np.asarray(flat[:-3]).reshape(self.scalars.shape)[:int(n_in)]
         traces = {k: rows[:, i] for i, k in enumerate(TRACE_KEYS)}
@@ -441,6 +455,27 @@ def _fuse_limit(mesh, draws, device) -> Optional[str]:
                     "CUDA tensors through host memory, which a CUDA graph "
                     "cannot capture; use NCCL, one card per rank)")
     return None
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str], device, root: bool):
+    """With `profile_dir`, a torch.profiler trace of the block (CPU
+    activity, and CUDA activity on a card), written by rank 0 to
+    profile_dir/smc_trace.json once the block has ended and the card has
+    finished its work; nothing without it."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import profile, ProfilerActivity
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    if root:
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "smc_trace.json"))
 
 
 def smc(loglikelihood: Callable,
@@ -527,8 +562,11 @@ def smc(loglikelihood: Callable,
         and infers whether the checkpoint's stage resampled from its ESS,
         so an adaptive-schedule resume is bit-identical too.
       * `old_cloud` is not modified; a tempered update works on a copy.
-      * `profile_dir` writes a torch.profiler trace of the recursion
-        (`smc_trace.json`).
+      * `profile_dir` writes a torch.profiler trace of the whole call,
+        initialization and final reads included (`smc_trace.json`), with
+        the spans of tracing.py (`smc.estimation`, `smc.init`, ...). The
+        spans are recorded exactly while a torch profiler records, this
+        one or the caller's.
       * `aot_cache_dir` has no effect: eager PyTorch has no compiled
         program to cache (the CUDA kernels' build is cached by _build).
       * `mesh` is a particle mesh (parallel.particle_mesh()) over the
@@ -586,157 +624,165 @@ def smc(loglikelihood: Callable,
         sharding = particle_sharding(mesh)
         sharding.rows(n_parts)          # raises unless R divides n_parts
     root = sharding is None or sharding.rank == 0
-    shown_verbose = verbose if root else "none"
-    space = (parameters if isinstance(parameters, ParamSpace)
-             else ParamSpace(parameters, regime_switching=regime_switching))
-    if space.n_free == 0:
-        raise ValueError("All model parameters are fixed!")
-    if device.type == "cuda":       # the eigh kernel's limit, before any draw
-        cuda_eigh.check_block(max(block_sizes(space.n_free, n_blocks)))
+    with _profiled(profile_dir, device, root), span("smc.estimation"):
+        shown_verbose = verbose if root else "none"
+        space = (parameters if isinstance(parameters, ParamSpace)
+                 else ParamSpace(parameters,
+                                 regime_switching=regime_switching))
+        if space.n_free == 0:
+            raise ValueError("All model parameters are fixed!")
+        if device.type == "cuda":   # the eigh kernel's limit, before any draw
+            cuda_eigh.check_block(max(block_sizes(space.n_free, n_blocks)))
 
-    def batch(fn, d):
-        return (lambda th: fn(th, d)) if batched else \
-            torch.func.vmap(lambda th: fn(th, d))
+        def batch(fn, d):
+            call = (lambda th: fn(th, d)) if batched else \
+                torch.func.vmap(lambda th: fn(th, d))
 
-    loglike_batched = batch(loglikelihood, data)
-    tempered_update = old_data is not None
-    old_loglike_batched = None
-    if tempered_update:
-        old_loglike_batched = batch(old_loglikelihood or loglikelihood,
-                                    old_data)
+            def likelihood(th):
+                with span("smc.likelihood"):
+                    return call(th)
+            return likelihood
 
-    threshold = threshold_ratio * n_parts
-    sched = fixed_schedule(n_phi, lam)
-    omega = tempered_update_prior_weight
+        loglike_batched = batch(loglikelihood, data)
+        tempered_update = old_data is not None
+        old_loglike_batched = None
+        if tempered_update:
+            old_loglike_batched = batch(old_loglikelihood or loglikelihood,
+                                        old_data)
 
-    # ---- initialization: fresh, tempered update / bridge, or resume --------
-    i = 1
-    j = 1          # 0-based index of the next untried schedule entry
-    phi_prop = 0.0
-    log_mdd = 0.0
-    resampled_last = False
-    init_rounds = 0
-    w_cols: List[torch.Tensor] = []
-    W_cols: List[torch.Tensor] = []
+        threshold = threshold_ratio * n_parts
+        sched = fixed_schedule(n_phi, lam)
+        omega = tempered_update_prior_weight
 
-    def shard(cloud):
-        return cloud if sharding is None else sharding.shard(cloud)
+        # ---- initialization: fresh, tempered update / bridge, or resume ----
+        i = 1
+        j = 1          # 0-based index of the next untried schedule entry
+        phi_prop = 0.0
+        log_mdd = 0.0
+        resampled_last = False
+        init_rounds = 0
+        w_cols: List[torch.Tensor] = []
+        W_cols: List[torch.Tensor] = []
 
-    def whole(cloud):
-        return cloud if sharding is None else sharding.gather_cloud(cloud)
+        def shard(cloud):
+            return cloud if sharding is None else sharding.shard(cloud)
 
-    def reinit_scalars(cloud, tempered):
-        cloud.ESS = [cloud.ESS[-1]] if tempered else [float(n_parts)]
-        cloud.stage_index = 1
-        cloud.n_phi = n_phi
-        cloud.resamples = 0
-        cloud.c = c
-        cloud.accept_rate = target
-        cloud.total_sampling_time = 0.0
-        cloud.tempering_schedule = [0.0]
-        return cloud
+        def whole(cloud):
+            return cloud if sharding is None else sharding.gather_cloud(cloud)
 
-    if tempered_update:
-        if old_cloud is None or old_cloud.is_empty():
-            if not loadpath:
-                raise ValueError("tempered update requires old_cloud or "
-                                 "loadpath")
-            old_cloud = smc_io.get_cloud(loadpath, device=device)
-        cloud = _on_device(old_cloud, device)
-        if omega == 0.0 and cloud.n_parts == n_parts:
-            cloud = reinit_scalars(cloud, tempered=True)
-            weights0 = cloud.weights
-            cloud = initialize_likelihoods(shard(cloud), space,
-                                           loglike_batched)
-        else:
-            # bridge: (1-omega) N resampled old-posterior draws and omega N
-            # prior draws whose loglh is evaluated on the old data, then all
-            # evaluated on the new data and resampled (one-time work, done
-            # whole on every rank of a mesh)
-            n_to_resample = int(round((1.0 - omega) * n_parts))
-            n_from_prior = n_parts - n_to_resample
-            parts = []
-            if n_to_resample > 0:
-                idx = resample_indices(draws, cloud.weights,
-                                       method=resampling_method,
-                                       n_parts=n_to_resample)
-                parts.append(cloud.reindexed(idx))
-            if n_from_prior > 0:
-                prior_cloud, init_rounds = initial_draw(
-                    draws, space, old_loglike_batched, n_from_prior,
-                    device=device)
-                parts.append(prior_cloud)
-            cloud = Cloud.create(space.n_para, n_parts, device=device)
-            for f in ("params", "loglh", "logprior", "old_loglh"):
-                setattr(cloud, f, torch.cat([getattr(p, f) for p in parts]))
-            cloud = initialize_likelihoods(cloud, space, loglike_batched)
-            cloud.zero_bad_loglh_weights()
-            norm_w = cloud.normalize_weights()
-            cloud = cloud.reindexed(resample_indices(
-                draws, norm_w, method=resampling_method))
-            cloud.reset_weights()
-            cloud.ESS.append(float(n_parts))
-            cloud = reinit_scalars(cloud, tempered=True)
-            weights0 = cloud.weights
-            cloud = shard(cloud)
-    elif continue_intermediate:
-        if not loadpath:
-            raise ValueError("continue_intermediate requires loadpath")
-        (cloud, w_saved, W_saved, j, phi_prop, log_mdd,
-         rng_state) = smc_io.load_checkpoint(loadpath, device=device)
-        cloud = shard(cloud)
-        draws.set_state(rng_state)
-        as_cols = lambda m: [torch.as_tensor(m[:, k], device=device)
-                             for k in range(m.shape[1])]
-        w_cols, W_cols = as_cols(w_saved), as_cols(W_saved)
-        i = cloud.stage_index
-        c = cloud.c
-        if use_fixed_schedule:
-            cloud.tempering_schedule = list(sched[:i])
-        resampled_last = cloud.ESS[-1] < threshold
-    else:
-        cloud, init_rounds = initial_draw(draws, space, loglike_batched,
-                                          n_parts, device=device,
-                                          sharding=sharding)
-        cloud = reinit_scalars(cloud, tempered=False)
+        def reinit_scalars(cloud, tempered):
+            cloud.ESS = [cloud.ESS[-1]] if tempered else [float(n_parts)]
+            cloud.stage_index = 1
+            cloud.n_phi = n_phi
+            cloud.resamples = 0
+            cloud.c = c
+            cloud.accept_rate = target
+            cloud.total_sampling_time = 0.0
+            cloud.tempering_schedule = [0.0]
+            return cloud
 
-    cloud.n_phi = n_phi
-    if use_fixed_schedule and not continue_intermediate:
-        cloud.tempering_schedule = [float(sched[0])]
-    if store_weight_matrices and not continue_intermediate:
-        w_cols = [torch.zeros(n_parts, dtype=_F64, device=device)]
-        W_cols = [weights0 if tempered_update else
-                  torch.ones(n_parts, dtype=_F64, device=device)]
+        with span("smc.init"):
+            if tempered_update:
+                if old_cloud is None or old_cloud.is_empty():
+                    if not loadpath:
+                        raise ValueError("tempered update requires old_cloud "
+                                         "or loadpath")
+                    old_cloud = smc_io.get_cloud(loadpath, device=device)
+                cloud = _on_device(old_cloud, device)
+                if omega == 0.0 and cloud.n_parts == n_parts:
+                    cloud = reinit_scalars(cloud, tempered=True)
+                    weights0 = cloud.weights
+                    cloud = initialize_likelihoods(shard(cloud), space,
+                                                   loglike_batched)
+                else:
+                    # bridge: (1-omega) N resampled old-posterior draws and
+                    # omega N prior draws whose loglh is evaluated on the old
+                    # data, then all evaluated on the new data and resampled
+                    # (one-time work, done whole on every rank of a mesh)
+                    n_to_resample = int(round((1.0 - omega) * n_parts))
+                    n_from_prior = n_parts - n_to_resample
+                    parts = []
+                    if n_to_resample > 0:
+                        idx = resample_indices(draws, cloud.weights,
+                                               method=resampling_method,
+                                               n_parts=n_to_resample)
+                        parts.append(cloud.reindexed(idx))
+                    if n_from_prior > 0:
+                        prior_cloud, init_rounds = initial_draw(
+                            draws, space, old_loglike_batched, n_from_prior,
+                            device=device)
+                        parts.append(prior_cloud)
+                    cloud = Cloud.create(space.n_para, n_parts, device=device)
+                    for f in ("params", "loglh", "logprior", "old_loglh"):
+                        setattr(cloud, f,
+                                torch.cat([getattr(p, f) for p in parts]))
+                    cloud = initialize_likelihoods(cloud, space,
+                                                   loglike_batched)
+                    cloud.zero_bad_loglh_weights()
+                    norm_w = cloud.normalize_weights()
+                    cloud = cloud.reindexed(resample_indices(
+                        draws, norm_w, method=resampling_method))
+                    cloud.reset_weights()
+                    cloud.ESS.append(float(n_parts))
+                    cloud = reinit_scalars(cloud, tempered=True)
+                    weights0 = cloud.weights
+                    cloud = shard(cloud)
+            elif continue_intermediate:
+                if not loadpath:
+                    raise ValueError("continue_intermediate requires loadpath")
+                (cloud, w_saved, W_saved, j, phi_prop, log_mdd,
+                 rng_state) = smc_io.load_checkpoint(loadpath, device=device)
+                cloud = shard(cloud)
+                draws.set_state(rng_state)
+                as_cols = lambda m: [torch.as_tensor(m[:, k], device=device)
+                                     for k in range(m.shape[1])]
+                w_cols, W_cols = as_cols(w_saved), as_cols(W_saved)
+                i = cloud.stage_index
+                c = cloud.c
+                if use_fixed_schedule:
+                    cloud.tempering_schedule = list(sched[:i])
+                resampled_last = cloud.ESS[-1] < threshold
+            else:
+                cloud, init_rounds = initial_draw(draws, space,
+                                                  loglike_batched, n_parts,
+                                                  device=device,
+                                                  sharding=sharding)
+                cloud = reinit_scalars(cloud, tempered=False)
 
-    stage = make_stage_core(space, loglike_batched, n_blocks, n_mh_steps,
-                            alpha, resampling_method, threshold, omega,
-                            log_prob_old_data, old_loglike_batched, sharding)
-    sched_dev = torch.as_tensor(sched, device=device)
-    step = make_recursion_step(stage, sched_dev, n_parts, use_fixed_schedule,
-                               tempering_target, target, sharding)
-    state = _initial_state(cloud, device, c, cloud.tempering_schedule[-1], j,
-                           phi_prop, resampled_last, i, log_mdd)
-    para_names = list(space.names)
+            cloud.n_phi = n_phi
+            if use_fixed_schedule and not continue_intermediate:
+                cloud.tempering_schedule = [float(sched[0])]
+            if store_weight_matrices and not continue_intermediate:
+                w_cols = [torch.zeros(n_parts, dtype=_F64, device=device)]
+                W_cols = [weights0 if tempered_update else
+                          torch.ones(n_parts, dtype=_F64, device=device)]
 
-    def shown(cloud):
-        """The cloud a stage print shows: the whole one (verbose="high"
-        prints its moments; every rank gathers, rank 0 prints)."""
-        return whole(cloud) if verbose == "high" else cloud
+            stage = make_stage_core(space, loglike_batched, n_blocks,
+                                    n_mh_steps, alpha, resampling_method,
+                                    threshold, omega, log_prob_old_data,
+                                    old_loglike_batched, sharding)
+            sched_dev = torch.as_tensor(sched, device=device)
+            step = make_recursion_step(stage, sched_dev, n_parts,
+                                       use_fixed_schedule, tempering_target,
+                                       target, sharding)
+            state = _initial_state(cloud, device, c,
+                                   cloud.tempering_schedule[-1], j, phi_prop,
+                                   resampled_last, i, log_mdd)
+        para_names = list(space.names)
 
-    diag.init_stage_print(shown(cloud), para_names, verbose=shown_verbose,
-                          use_fixed_schedule=use_fixed_schedule)
-    diag.vprint(shown_verbose, "low", "SMC recursion starts...")
+        def shown(cloud):
+            """The cloud a stage print shows: the whole one (verbose="high"
+            prints its moments; every rank gathers, rank 0 prints)."""
+            return whole(cloud) if verbose == "high" else cloud
 
-    host_reads = 0
-    masked = 0
-    capture_seconds = 0.0
-    chain_lengths: List[int] = []
-    with contextlib.ExitStack() as profiling:
-        if profile_dir:
-            from torch.profiler import profile, ProfilerActivity
-            acts = [ProfilerActivity.CPU] + (
-                [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-            prof = profiling.enter_context(profile(activities=acts))
+        diag.init_stage_print(shown(cloud), para_names, verbose=shown_verbose,
+                              use_fixed_schedule=use_fixed_schedule)
+        diag.vprint(shown_verbose, "low", "SMC recursion starts...")
+
+        host_reads = 0
+        masked = 0
+        capture_seconds = 0.0
+        chain_lengths: List[int] = []
         if use_fused:
             full = int(fused_chunk_stages or (min(25, n_phi)
                                               if verbose == "low" else n_phi))
@@ -756,17 +802,18 @@ def smc(loglikelihood: Callable,
                 while True:
                     if remaining is not None:
                         size = min(size, remaining)
-                    fused_rec.buffers["k"].zero_()
-                    watch = (None if use_fixed_schedule else
-                             _DoneWatch(device, size))
-                    issued = 0
-                    while issued < size:
-                        fused_rec.run_stage()
-                        issued += 1
-                        if watch is not None and watch.after_stage(
-                                fused_rec.buffers["done"]):
-                            break
-                    n_in, traces, nan_ess, done = fused_rec.read_chunk()
+                    with span("smc.chunk"):
+                        fused_rec.buffers["k"].zero_()
+                        watch = (None if use_fixed_schedule else
+                                 _DoneWatch(device, size))
+                        issued = 0
+                        while issued < size:
+                            fused_rec.run_stage()
+                            issued += 1
+                            if watch is not None and watch.after_stage(
+                                    fused_rec.buffers["done"]):
+                                break
+                        n_in, traces, nan_ess, done = fused_rec.read_chunk()
                     host_reads += 1
                     masked += issued - n_in
                     if remaining is not None:
@@ -803,31 +850,23 @@ def smc(loglikelihood: Callable,
                     if done or remaining == 0:
                         break
                     size = full
-                b = fused_rec.buffers
-                (cloud.c, cloud.accept_rate, log_mdd, j,
-                 phi_prop) = torch.stack([
-                     b["c"], b["accept_rate"], b["log_mdd"], b["j"].to(_F64),
-                     b["phi_prop"]]).tolist()
-                host_reads += 1
             if stream is not None:
                 torch.cuda.current_stream(device).wait_stream(stream)
-            for f in ("params", "loglh", "logprior", "old_loglh", "weights",
-                      "accept"):
-                setattr(cloud, f, fused_rec.buffers[f])
-            capture_seconds = fused_rec.capture_seconds
         else:
             timer = diag.StageTimer()
             phi_n = float(cloud.tempering_schedule[-1])
             while phi_n < 1.0:
                 i += 1
                 cloud.stage_index = i
-                state, ex = step(draws, state)
-                (phi_n, ess, mdd_inc, did, cloud.c, cloud.accept_rate, j,
-                 phi_prop, doeblin) = torch.stack([
-                     state["phi"], state["ess_prev"], ex["mdd_inc"],
-                     state["resampled_last"].to(_F64), state["c"],
-                     state["accept_rate"], state["j"].to(_F64),
-                     state["phi_prop"], ex["doeblin"]]).tolist()
+                with span("smc.stage"):
+                    state, ex = step(draws, state)
+                    with span("smc.read"):
+                        (phi_n, ess, mdd_inc, did, cloud.c, cloud.accept_rate,
+                         j, phi_prop, doeblin) = torch.stack([
+                             state["phi"], state["ess_prev"], ex["mdd_inc"],
+                             state["resampled_last"].to(_F64), state["c"],
+                             state["accept_rate"], state["j"].to(_F64),
+                             state["phi_prop"], ex["doeblin"]]).tolist()
                 j = int(j)
                 host_reads += 1
                 for f in ("params", "loglh", "logprior", "old_loglh",
@@ -867,40 +906,46 @@ def smc(loglikelihood: Callable,
                         host_reads += 1
                     if sharding is not None:
                         sharding.barrier()
-        if profile_dir:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            profiling.close()
-            if root:
-                os.makedirs(profile_dir, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(profile_dir,
-                                                      "smc_trace.json"))
 
-    cloud = whole(cloud)
-    w_matrix = W_matrix = None
-    if store_weight_matrices:
-        w_matrix, W_matrix = _stack(w_cols, n_parts), _stack(W_cols, n_parts)
-    writes = not testing and (savepath or particle_store_path)
-    if writes and root:
-        if savepath:
-            extra = ({"w": w_matrix, "W": W_matrix} if store_weight_matrices
-                     else {})
-            extra["log_mdd"] = np.asarray(log_mdd)
-            smc_io.save_cloud(savepath, cloud, extra=extra)
-        if particle_store_path:
-            smc_io.save_particle_store(particle_store_path, cloud)
-    if writes and sharding is not None:
-        sharding.barrier()
-    return SMCResult(cloud=cloud, w=w_matrix, W=W_matrix, log_mdd=log_mdd,
-                     para_names=para_names, space=space,
-                     init_rounds=init_rounds, fused=use_fused,
-                     host_reads=host_reads, masked_stages=masked,
-                     capture_seconds=capture_seconds,
-                     chain_lengths=chain_lengths,
-                     collectives=0 if sharding is None else
-                     sharding.collectives,
-                     collective_bytes=0 if sharding is None else
-                     sharding.bytes)
+        with span("smc.finish"):
+            if use_fused:
+                b = fused_rec.buffers
+                with span("smc.read"):
+                    (cloud.c, cloud.accept_rate, log_mdd, j,
+                     phi_prop) = torch.stack([
+                         b["c"], b["accept_rate"], b["log_mdd"],
+                         b["j"].to(_F64), b["phi_prop"]]).tolist()
+                host_reads += 1
+                for f in ("params", "loglh", "logprior", "old_loglh",
+                          "weights", "accept"):
+                    setattr(cloud, f, b[f])
+                capture_seconds = fused_rec.capture_seconds
+            cloud = whole(cloud)
+            w_matrix = W_matrix = None
+            if store_weight_matrices:
+                w_matrix = _stack(w_cols, n_parts)
+                W_matrix = _stack(W_cols, n_parts)
+            writes = not testing and (savepath or particle_store_path)
+            if writes and root:
+                if savepath:
+                    extra = ({"w": w_matrix, "W": W_matrix}
+                             if store_weight_matrices else {})
+                    extra["log_mdd"] = np.asarray(log_mdd)
+                    smc_io.save_cloud(savepath, cloud, extra=extra)
+                if particle_store_path:
+                    smc_io.save_particle_store(particle_store_path, cloud)
+            if writes and sharding is not None:
+                sharding.barrier()
+        return SMCResult(cloud=cloud, w=w_matrix, W=W_matrix, log_mdd=log_mdd,
+                         para_names=para_names, space=space,
+                         init_rounds=init_rounds, fused=use_fused,
+                         host_reads=host_reads, masked_stages=masked,
+                         capture_seconds=capture_seconds,
+                         chain_lengths=chain_lengths,
+                         collectives=0 if sharding is None else
+                         sharding.collectives,
+                         collective_bytes=0 if sharding is None else
+                         sharding.bytes)
 
 
 def _chain_lengths(out: List[int], doeblin, resampled) -> None:
