@@ -142,9 +142,12 @@ def ptxas_lines(log: str):
             k = re.search(r"(re_kernel|kalman_kernel)ILi(\d+)ELi(\d+)E",
                           m.group(1))
             gen = re.search(r"(re_general_kernel|kalman_general_kernel)"
-                            r"ILi(\d+)E", m.group(1))
+                            r"ILi(\d+)E(?:Li(\d+)E)?", m.group(1))
             name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else
-                    f"{gen.group(1)}<{gen.group(2)}>" if gen else
+                    f"{gen.group(1)}<{gen.group(2)}>" if gen and
+                    gen.group(3) is None else
+                    f"{gen.group(1)}<{gen.group(2)},{gen.group(3)}>" if gen
+                    else
                     "eigh_kernel" if "eigh_kernel" in m.group(1) else
                     "metropolis_kernel" if "metropolis_kernel" in m.group(1)
                     else m.group(1))
@@ -311,6 +314,34 @@ def kalman_flops(ns, nk, lyap_iters, n_t, no=3):
                + ns * no                                      # new K
                + no * no + 6                                  # new F
                + psd_solve_flops(no, no) + no * no + 6
+               + 8))                                          # new M, guards
+    return _add(setup, _mul(lyap_iters, per_doubling), first,
+                _mul(n_t, per_step))
+
+
+def kalman_general_flops(ns, nk, lyap_iters, n_t, no):
+    """flop of kalman_block's filter of one ok particle (the general-shape
+    kernel): kalman_flops' set-up and doubling, and steps regrouped as the
+    kernel forms them: Z U = (Z W)(M W'Z') and K' = K + (T W)(M W'Z'), so
+    neither U = W M W'Z' nor the n_state-long T U is formed, and one factor
+    a step (F''s, which serves the next step's solve too)."""
+    setup = _f(prod=2 * ns * nk * nk + 2 * ns * ns * nk)
+    per_doubling = _f(prod=3 * 2 * ns ** 3, other=ns * ns)
+    first = _f(prod=2 * ns * ns * no * 2 + 2 * no * no * ns,
+               other=60 if no == 3 else psd_solve_flops(no, no))
+    rhs = lambda m: psd_solve_flops(no, m) - psd_solve_flops(no, 0)
+    per_step = _f(
+        prod=(2 * no * no * ns                                # Z W
+              + 2 * no ** 3 + 2 * no ** 3                     # M W'Z', Z U
+              + 2 * ns * ns * no + 2 * ns * no * no           # new W
+              + 2 * ns * no * no                              # new K
+              + 2 * 2 * no ** 3),                             # new M
+        other=(2 * no * ns + 2 * no                           # Z s, v
+               + rhs(1 + no) + 10                             # solve, quad
+               + 2 * ns * ns + 2 * ns * no + ns               # s
+               + ns * no                                      # new K
+               + no * no + 6                                  # new F
+               + psd_solve_flops(no, 0) + rhs(no) + no * no + 6
                + 8))                                          # new M, guards
     return _add(setup, _mul(lyap_iters, per_doubling), first,
                 _mul(n_t, per_step))
@@ -773,11 +804,14 @@ def chandrasekhar_steps(T_mat, R_mat, Q, Z, d_obs, H, data):
     return steps
 
 
-def general_work(A, B, C, X, M, ok, Q, Z, d, H, data):
+def general_work(A, B, C, X, M, ok, Q, Z, d, H, data, kalman=kalman_flops):
     """The flop and bytes of the general kernels' work on these inputs
     (the cyclic-reduction iterations, doubling steps and filter steps each
     particle needs) and the bounds: ((re flop, bytes, bound, by), (kalman
-    flop, bytes, bound, by), iterations, doubling steps, filter steps)."""
+    flop, bytes, bound, by), iterations, doubling steps, filter steps).
+    `kalman` counts a particle's filter: by default the plain filter's
+    products (kalman_flops, the count perfbench/kernels/_counts.py
+    freezes), kalman_general_flops for the kernel's own."""
     n_s, n_k, n_o, n = A.shape[0], M.shape[1], Z.shape[0], A.shape[-1]
     n_t = data.shape[1]
     cr_it = cr_iterations(A, B, C)
@@ -787,7 +821,7 @@ def general_work(A, B, C, X, M, ok, Q, Z, d, H, data):
     steps = chandrasekhar_steps(okX, okM, sub(Q), sub(Z), sub(d), sub(H),
                                 data)
     re_flop = _work_flop(cr_it, lambda i: re_flops(n_s, n_k, i))
-    kal_flop = _add(_f(), *(kalman_flops(n_s, n_k, int(i), int(st), n_o)
+    kal_flop = _add(_f(), *(kalman(n_s, n_k, int(i), int(st), n_o)
                             for i, st in zip(ly_it.tolist(),
                                              steps.tolist())))
     re_bytes = n * (8 * (3 * n_s * n_s + n_s * n_k)
@@ -887,9 +921,13 @@ def general_phase(dev, ptxas):
         raise RuntimeError("general: a NaN particle changed other particles")
 
     (re_w, kal_w, cr_it, ly_it, steps) = general_work(
-        A, B, C, X, M, ok, Q, Z, d, H, data)
+        A, B, C, X, M, ok, Q, Z, d, H, data, kalman=kalman_general_flops)
     re_flop, re_bytes, re_bound, re_by = re_w
     kal_flop, kal_bytes, kal_bound, kal_by = kal_w
+    # the same steps at the plain filter's products (the benchmark's count)
+    kal_plain_bound = bound_ms(_add(_f(), *(
+        kalman_flops(A.shape[0], D.shape[1], int(i), int(st), Z.shape[0])
+        for i, st in zip(ly_it.tolist(), steps.tolist()))), kal_bytes)[0]
     re_ms = cuda_ms(lambda: g.solve_linear_re(A, B, C, D), 5, 3)
     kal_ms = cuda_ms(lambda: g.kalman_chandrasekhar(
         X, M, Q, Z, d, H, data, ok=ok), 5, 3)
@@ -901,8 +939,9 @@ def general_phase(dev, ptxas):
     kal_plain = once_ms(lambda: torch.where(
         okp, bl_kalman_loglike_chandrasekhar(Xp, Mp, Q, Z, d, H, data),
         float("-inf")))
-    regs = {k: ptxas.get(f"{k}_general_kernel<256>") for k in ("re",
-                                                               "kalman")}
+    # the instantiations SW runs: 256 threads, n_obs 7 on rows of 8 lanes
+    regs = {"re": ptxas.get("re_general_kernel<256>"),
+            "kalman": ptxas.get("kalman_general_kernel<256,8>")}
     print(f"# general at SW's shape, N={A.shape[-1]}: cyclic reduction "
           f"{cr_it.double().mean().item():.4f} iterations, doubling "
           f"{ly_it.double().mean().item():.4f} steps and "
@@ -910,13 +949,16 @@ def general_phase(dev, ptxas):
           f"{int(ok.sum())} ok particles; re {_flop_str(re_flop)} "
           f"{re_bytes} B, bound {re_bound:.4f} ms ({re_by}); kalman "
           f"{_flop_str(kal_flop)} {kal_bytes} B, bound {kal_bound:.4f} ms "
-          f"({kal_by})")
+          f"({kal_by}; {kal_plain_bound:.4f} ms at the plain filter's "
+          f"products)")
     print(f"# general times at SW's shape (ms): re kernel {re_ms:.4f}, graph "
           f"{re_graph:.4f} ({100 * re_bound / re_ms:.2f}% of bound), plain "
           f"{re_plain:.4f}; kalman kernel {kal_ms:.4f}, graph {kal_graph:.4f} "
-          f"({100 * kal_bound / kal_ms:.2f}% of bound), plain "
+          f"({100 * kal_bound / kal_ms:.2f}% of bound, "
+          f"{100 * kal_plain_bound / kal_ms:.2f}% at the plain filter's "
+          f"products), plain "
           f"{kal_plain:.4f}; re_general_kernel<256> {regs['re']}; "
-          f"kalman_general_kernel<256> {regs['kalman']}")
+          f"kalman_general_kernel<256,8> {regs['kalman']}")
 
     # AS-2obs's shape (n_state 6: the 64-thread block; n_obs 2: Cholesky)
     _, as_in = inputs(as_dsge, as_dsge.an_schorfheide_parameters(),
@@ -925,7 +967,8 @@ def general_phase(dev, ptxas):
     Xa, Ma, oka, _, _, _ = general_compare(
         f"AS-2obs ({AS_N_PARTS} prior draws)", *as_in, TAIL_RTOL)
     (re_a, kal_a, _, _, _) = general_work(*as_in[:3], Xa, Ma, oka,
-                                          *as_in[4:])
+                                          *as_in[4:],
+                                          kalman=kalman_general_flops)
     Aa, Ba, Ca, Da, Qa, Za, da, Ha, ya = as_in
     re_ms_a = cuda_ms(lambda: g.solve_linear_re(Aa, Ba, Ca, Da), 10, 3)
     kal_ms_a = cuda_ms(lambda: g.kalman_chandrasekhar(
@@ -934,8 +977,8 @@ def general_phase(dev, ptxas):
           f"({100 * re_a[2] / re_ms_a:.2f}% of {re_a[2]:.4f}, {re_a[3]}); "
           f"kalman kernel {kal_ms_a:.4f} ({100 * kal_a[2] / kal_ms_a:.2f}% "
           f"of {kal_a[2]:.4f}, {kal_a[3]}); re_general_kernel<64> "
-          f"{ptxas.get('re_general_kernel<64>')}; kalman_general_kernel<64> "
-          f"{ptxas.get('kalman_general_kernel<64>')}")
+          f"{ptxas.get('re_general_kernel<64>')}; kalman_general_kernel<64,4> "
+          f"{ptxas.get('kalman_general_kernel<64,4>')}")
 
     for n_s in GEN_STATES:
         for n_o in GEN_OBS:
@@ -966,7 +1009,8 @@ def general_phase(dev, ptxas):
     call = lambda: model.loglike_batched(th, sw_dsge.load_sw_data())
     big_ms = cuda_ms(call, 2, 3)
     Xb, Mb, okb = g.solve_linear_re(*big[:4])
-    (re_b, kal_b, _, _, _) = general_work(*big[:3], Xb, Mb, okb, *big[4:])
+    (re_b, kal_b, _, _, _) = general_work(*big[:3], Xb, Mb, okb, *big[4:],
+                                          kalman=kalman_general_flops)
     bound_b, by_b = bound_ms(_add(re_b[0], kal_b[0]), re_b[1] + kal_b[1])
     print(f"# general SW likelihood call at N={SW_LARGE_N}: {big_ms:.4f} ms "
           f"(the model's loglike_batched, system matrices included), bound "
@@ -1502,13 +1546,14 @@ def sw_call_stats(dev, model, data):
     n_bytes = (8 * SW_N_PARTS * (3 * ns * ns + ns * nk + nk * nk + no * ns
                                  + no + no * no + 1) + 8 * no * n_t)
     flop = _mul(SW_N_PARTS, _add(re_flops(ns, nk, 16),
-                                 kalman_flops(ns, nk, 30, n_t, no)))
+                                 kalman_general_flops(ns, nk, 30, n_t, no)))
     bound, by = bound_ms(flop, n_bytes)
     A, B, C, D = sw_dsge._system(th)
     d, Z, H = sw_dsge._measurement(th)
     X, M, ok = g.solve_linear_re(A, B, C, D)
     re_w, kal_w, cr_it, ly_it, steps = general_work(
-        A, B, C, X, M, ok, sw_dsge._shock_cov(th), Z, d, H, y)
+        A, B, C, X, M, ok, sw_dsge._shock_cov(th), Z, d, H, y,
+        kalman=kalman_general_flops)
     need_flop = _add(re_w[0], kal_w[0])
     need_bound, need_by = bound_ms(need_flop, n_bytes)
     print(f"# (f) SW likelihood call at N={SW_N_PARTS} (the general "

@@ -13,23 +13,42 @@
 // These are the JAX package's default likelihood ("xla"), which XLA
 // compiles into a few fused device loops; the port's plain version
 // (models/dsge.py bl_*) issues a dozen launches per Gauss-Jordan pivot
-// step. Here a block walks the same algorithm phase by phase: the threads
-// share each phase's entries (a slab of rows and columns each, fixed per
-// phase), and the block's barrier separates the phases. Between two
-// barriers a thread writes only entries that no other thread reads in that
-// phase, so the host build (dsge_general_cpu.cpp, each thread's share run
-// in turn, lanes.cuh) computes what the card computes, up to the card's
-// fused multiply-adds.
+// step. The RE solve and the Lyapunov doubling walk the algorithm phase by
+// phase: the threads share each phase's entries (a slab of rows and
+// columns each, fixed per phase), and the block's barrier separates the
+// phases. Between two barriers a thread writes only entries that no other
+// thread reads in that phase, so the host build (dsge_general_cpu.cpp, each
+// thread's share run in turn, lanes.cuh) computes what the card computes,
+// up to the card's fused multiply-adds.
 //
-// What bounds it: f64 arithmetic. At Smets-Wouters' shape (37, 7, 7) a
+// The Chandrasekhar recursion splits the block by role. Warp 0, the
+// innovation warp, does the n_obs-sized algebra with its lanes holding the
+// rows in registers: the Cholesky factor of F (pivot broadcast, column
+// scaled, rank-1 update of the trailing block, by shuffles), the log det
+// (the pivots' logs in parallel, summed by a butterfly: one log on the
+// path), the solves F^-1 [v | Z W] and F'^-1 Z W (substitution, each row's
+// values passed on by shuffles), the M-update and the guards. The other
+// warps, the product warps, form the n_state-sized products. The two hand
+// results over at named barriers where the producer arrives without
+// waiting, so warp 0 solves while the product warps finish the last step's
+// Z W, and the product warps form W' and s' while warp 0 factors F'. Two
+// products are reassociated to take n_state out of that chain: Z U = (Z
+// W)(M W'Z') and T U = (T W)(M W'Z'), T W being formed for W' anyway, so U
+// = W M W'Z' itself is never formed. On the host the roles run in program
+// order, warp 0's part of a step before the product warps', which meets
+// every hand-off.
+//
+// What bounds it: latency. At Smets-Wouters' shape (37, 7, 7) a
 // cyclic-reduction iteration is a 37 x 111 Gauss-Jordan and four 37^3
-// products (~0.65 Mflop), a Chandrasekhar step ~80 kflop; a whole particle
-// ~23 Mflop (~10 in the RE solve, ~13 in the filter) against ~35 kB of
-// inputs. A particle's work is a chain of small dependent phases (two
-// barriers per pivot step, eight per filter step), so its latency, not the
-// card's rate, sets the time: enough particles must be in flight, a few
-// blocks per SM. A block is kSmallTeam threads up to n_state kSmallMax
-// (more blocks per SM where the matrices are small), kLargeTeam beyond.
+// products (~0.65 Mflop), a Chandrasekhar step ~40 kflop; a whole particle
+// ~20 Mflop (~10 in the RE solve, ~10 in the filter, ~4 of them the
+// doubling) against ~35 kB of inputs. A particle's work is a chain of small dependent steps (two
+// barriers per pivot step; per filter step, the chain through M: warp 0's
+// factor, solve and M-update, the product warps' M W'Z' and Z U), so its
+// latency, not the card's rate, sets the time: enough particles must be in
+// flight, a few blocks per SM. A block is kSmallTeam threads up to n_state
+// kSmallMax (more blocks per SM where the matrices are small), kLargeTeam
+// beyond.
 //
 // The RE solve follows bl_solve_linear_re operation for operation:
 // Gauss-Jordan with the serial pivot rule (the first maximal |entry| at or
@@ -90,23 +109,22 @@ SMC_HD constexpr long long re_doubles(int n, int k) {
          red_doubles(team_for(n));
 }
 
-// The Kalman tile: persistent T, P, Z, d, s, s', v, the n_obs-square
-// matrices (F, F', M, M', M W'Z', F'^-1 Z W, its product with M, the
-// factor L), the innovation solve [n_obs, 1 + n_obs], the factor's
-// reciprocals, 8 scalars and the reduction slots; then a region used first
-// by the doubling (A_k, A_{k+1}, and a temporary that also holds Q R'),
-// then by the filter (K, K', W, W', W M W'Z': n_state x n_obs each); then
-// the observations [n_obs, n_t].
+// The Kalman tile: persistent T, P, Z, d, v, the n_obs-square matrices (F,
+// M and Z W twice each, M W'Z', the factor L, F'^-1 Z W, its product with
+// M; Z U is formed in the next F's place), the innovation solve [n_obs, 1 + n_obs], 4 scalars and the
+// reduction slots; then a region used first by the doubling (A_k, A_{k+1},
+// and a temporary that also holds Q R'), then by the filter (K and [W | s]
+// twice each, T W); then the observations [n_obs, n_t].
 SMC_HD constexpr long long kalman_union(int n, int k, int o) {
   return 2LL * n * n + (n * n > k * n ? (long long)n * n : (long long)k * n) >
-                 5LL * n * o
+                 5LL * n * o + 2 * n
              ? 2LL * n * n +
                    (n * n > k * n ? (long long)n * n : (long long)k * n)
-             : 5LL * n * o;
+             : 5LL * n * o + 2 * n;
 }
 SMC_HD constexpr long long kalman_fixed(int n, int o) {
-  return 2LL * n * n + (long long)o * n + o + 2 * n + o + 8LL * o * o +
-         (long long)o * (o + 1) + o + 8 + red_doubles(team_for(n));
+  return 2LL * n * n + (long long)o * n + 2 * o + 10LL * o * o +
+         (long long)o * (o + 1) + 4 + red_doubles(team_for(n));
 }
 SMC_HD constexpr long long kalman_doubles(int n, int k, int o, int n_t) {
   return kalman_fixed(n, o) + kalman_union(n, k, o) + (long long)o * n_t;
@@ -541,75 +559,299 @@ SMC_HD void re_block(const double* A, const double* B, const double* C,
 }
 
 // ---------------------------------------------------------------------------
-// The innovation solves (bl_psd_fast_solve): one thread factors, one
-// thread per right-hand side solves
+// The innovation warp: bl_psd_fast_solve on warp 0's lanes
 // ---------------------------------------------------------------------------
 
-// F [o][o] symmetric -> L [o][o] and inv [o]; meta[0] = log det F, meta[1]
-// = 1 where the Cholesky factorization failed (a pivot <= 0 or NaN: the
-// solves give NaN, as bl_chol_solve's do). At o = 3 the cofactors C00,
-// C01, C02, C11, C12, C22 in L[0..5] and 1 / det in inv[0], log det (NaN
-// for det < 0) in meta[0].
-SMC_HD inline void psd_factor(const double* F, int o, double* L, double* inv,
-                              double* meta) {
-  if (o == 3) {
-    const double a = F[0], b = F[1], c = F[2], d = F[4], e = F[5], f = F[8];
-    L[0] = d * f - e * e;
-    L[1] = c * e - b * f;
-    L[2] = b * e - c * d;
-    L[3] = a * f - c * c;
-    L[4] = b * c - a * e;
-    L[5] = a * d - b * b;
-    const double det = a * L[0] + b * L[1] + c * L[2];
-    inv[0] = 1.0 / det;
-    meta[0] = log(det);
-    meta[1] = 0.0;
-    return;
-  }
-  bool failed = false;
-  double logdet = 0.0;
-  for (int j = 0; j < o; ++j) {
-    double s = F[j * o + j];
-    for (int q = 0; q < j; ++q) s = s - L[j * o + q] * L[j * o + q];
-    failed = failed || !(s > 0.0);
-    const double ljj = sqrt(s);
-    inv[j] = 1.0 / ljj;
-    logdet = logdet + log(s);
-    L[j * o + j] = ljj;
-    for (int i = j + 1; i < o; ++i) {
-      double u = F[i * o + j];
-      for (int q = 0; q < j; ++q) u = u - L[i * o + q] * L[j * o + q];
-      L[i * o + j] = u * inv[j];
-    }
-  }
-  meta[0] = failed ? NAN : logdet;
-  meta[1] = failed ? 1.0 : 0.0;
+// An n_obs-row matrix on the innovation warp's lanes, for n_obs up to R:
+// the warp is G = 32 / R groups of R lanes; lane l holds row l % R, its
+// register p column G p + l / R. An R x R matrix takes kSq registers a lane,
+// an R x (R + 1) one kRhs. The kernel takes the least R of 4, 8, 16 that
+// holds n_obs (Smets-Wouters' 7: 8, two and three registers a lane).
+template <int R>
+struct Rows {
+  static_assert(kWarp % R == 0, "groups of R lanes");
+  static constexpr int G = kWarp / R;
+  static constexpr int kSq = (R + G - 1) / G;
+  static constexpr int kRhs = (R + G) / G;
+  SMC_HD static int row(int l) { return l % R; }
+  SMC_HD static int col(int l, int p) { return G * p + l / R; }
+  // the lane of row r in lane l's group, and the lane of entry (r, c)
+  SMC_HD static int in_group(int l, int r) { return r + R * (l / R); }
+  SMC_HD static int at(int r, int c) { return r + R * (c % G); }
+};
+static_assert(kMaxObs <= 16, "n_obs up to 16: R = 16 at most");
+SMC_HD constexpr int rows_for(int o) { return o <= 4 ? 4 : o <= 8 ? 8 : 16; }
+
+// register p of a lane's row, p known at run time only (selects: the row
+// stays in registers)
+template <int K>
+SMC_HD inline double reg_at(const double (&x)[K], int p) {
+  double v = x[0];
+  SMC_UNROLL for (int q = 1; q < K; ++q) v = q == p ? x[q] : v;
+  return v;
 }
 
-// x = F^-1 b for one right-hand side: b[i * bs], x[i * xs], i < o
-SMC_HD inline void psd_solve(const double* L, const double* inv,
-                             const double* meta, int o, const double* b,
-                             int bs, double* x, int xs) {
+// warp 0 alone runs the block that follows (on the host: every lane of it,
+// phase by phase, as SMC_LANES does)
+#ifdef __CUDA_ARCH__
+#define SMC_INNOVATION_WARP if (threadIdx.x < smc::kWarp)
+#else
+#define SMC_INNOVATION_WARP
+#endif
+
+// v[k] <- the value of v[k] in lane src(l) of lane l's warp, for every lane
+// l and every k
+template <int K, class Src, int N>
+SMC_HD inline void warp_gather(Lanes<double[K], N>& v, Src src) {
+#ifdef __CUDA_ARCH__
+  const int s = src((int)(threadIdx.x % kWarp));
+  SMC_UNROLL for (int k = 0; k < K; ++k)
+    v[0][k] = __shfl_sync(0xffffffffu, v[0][k], s);
+#else
+  for (int w = 0; w < N; w += kWarp)
+    for (int k = 0; k < K; ++k) {
+      double o[kWarp];
+      for (int l = 0; l < kWarp; ++l) o[l] = v[w + l][k];
+      for (int l = 0; l < kWarp; ++l) v[w + l][k] = o[src(l)];
+    }
+#endif
+}
+
+// the barrier of the product warps (the block's warps but warp 0): a named
+// barrier, which warp 0 does not wait at
+template <int N>
+SMC_HD inline void product_sync() {
+#ifdef __CUDA_ARCH__
+  if (threadIdx.x >= kWarp)
+    asm volatile("bar.sync 1, %0;" ::"n"(N - kWarp) : "memory");
+#endif
+}
+
+// the product warps (the block's warps but warp 0) alone run the block that
+// follows (on the host: SMC_TEAM's threads t >= 32 of it)
+#ifdef __CUDA_ARCH__
+#define SMC_PRODUCT_WARPS if (threadIdx.x >= smc::kWarp)
+#else
+#define SMC_PRODUCT_WARPS
+#endif
+
+// Hand-offs between warp 0 and the product warps within a filter step:
+// named barriers over the block, at which the producer arrives without
+// waiting and the consumer waits. On the host nothing: the block's code runs
+// in program order, producers first.
+enum Signal { kZUReady = 2, kSolReady = 3, kMReady = 4, kZWReady = 5 };
+template <int N>
+SMC_HD inline void signal_post(int id) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(N) : "memory");
+#endif
+}
+template <int N>
+SMC_HD inline void signal_wait(int id) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(N) : "memory");
+#endif
+}
+
+// The factor of F [o][o] (symmetric; f holds its rows on the lanes, as
+// warp_load leaves them, F in shared memory) into L and each lane's ir, the
+// reciprocal of its row's pivot; every lane gets log det F (NaN where the
+// factorization failed: a pivot <= 0 or NaN) and the failure flag.
+// Cholesky, right-looking: per column j the pivot is broadcast, the column
+// scaled and the trailing block updated by a rank-1 product, so each L
+// entry is formed as the serial left-looking loop forms it; the logs of the
+// pivots are taken in parallel and summed by a butterfly. Selects, no
+// branches: the lanes stay converged and the shuffles of a step issue
+// together. At o = 3 the cofactors C00, C01, C02, C11, C12, C22 in
+// L[0..5], ir = 1 / det in every lane, log det (NaN for det < 0).
+template <int R>
+SMC_HD inline void warp_factor(Lanes<double[Rows<R>::kRhs], kWarp>& f,
+                               const double* F, int o, double* L,
+                               Lanes<double, kWarp>& ir,
+                               Lanes<double, kWarp>& logdet,
+                               Lanes<bool, kWarp>& failed) {
+  using W = Rows<R>;
   if (o == 3) {
-    const double b0 = b[0], b1 = b[bs], b2 = b[2 * bs], id = inv[0];
-    x[0] = (L[0] * b0 + L[1] * b1 + L[2] * b2) * id;
-    x[xs] = (L[1] * b0 + L[3] * b1 + L[4] * b2) * id;
-    x[2 * xs] = (L[2] * b0 + L[4] * b1 + L[5] * b2) * id;
+    SMC_LANES(l) {
+      const double a = F[0], b = F[1], c = F[2], d = F[4], e = F[5],
+                   g = F[8];
+      const double c0 = d * g - e * e, c1 = c * e - b * g,
+                   c2 = b * e - c * d;
+      const double det = a * c0 + b * c1 + c * c2;
+      if (l == 0) {
+        L[0] = c0;
+        L[1] = c1;
+        L[2] = c2;
+        L[3] = a * g - c * c;
+        L[4] = b * c - a * e;
+        L[5] = a * d - b * b;
+      }
+      ir[l] = 1.0 / det;
+      logdet[l] = log(det);
+      failed[l] = false;
+    }
     return;
   }
-  if (meta[1] != 0.0) {
-    for (int i = 0; i < o; ++i) x[i * xs] = NAN;
+  Lanes<double, kWarp> pv;  // the lane's row's pivot
+  SMC_LANES(l) {
+    pv[l] = 1.0;
+    failed[l] = false;
+  }
+  SMC_UNROLL_BY(1) for (int j = 0; j < o; ++j) {
+    const int pj = j / W::G, gj = j % W::G;  // column j's register and group
+    Lanes<double[1], kWarp> d, cj;  // F'[j][j]; the lane's column-j entry
+    SMC_LANES(l) d[l][0] = cj[l][0] = reg_at(f[l], pj);
+    warp_gather(d, [=](int) { return W::at(j, j); });
+    SMC_LANES(l) {
+      const double s = d[l][0], ljj = sqrt(s), inv = 1.0 / ljj;
+      const int r = W::row(l);
+      const bool col = (l / R == gj) & (r >= j);  // the lane holds L[r][j]
+      failed[l] = failed[l] | !(s > 0.0);
+      ir[l] = r == j ? inv : ir[l];
+      pv[l] = r == j ? s : pv[l];
+      cj[l][0] = col ? (r == j ? ljj : cj[l][0] * inv) : cj[l][0];
+      SMC_UNROLL for (int q = 0; q < W::kSq; ++q)
+        f[l][q] = col & (q == pj) ? cj[l][0] : f[l][q];
+    }
+    // the rank-1 update f[r][c] -= L[r][j] L[c][j], j < c <= r
+    Lanes<double[1], kWarp> lr;
+    SMC_LANES(l) lr[l][0] = cj[l][0];
+    warp_gather(lr, [=](int l) { return l % R + R * gj; });
+    SMC_UNROLL for (int p = 0; p < W::kSq; ++p) {
+      Lanes<double[1], kWarp> lc;
+      SMC_LANES(l) lc[l][0] = cj[l][0];
+      warp_gather(lc, [=](int l) { return W::col(l, p) % R + R * gj; });
+      SMC_LANES(l) {
+        const int r = W::row(l), c = W::col(l, p);
+        const double u = f[l][p] - lr[l][0] * lc[l][0];
+        f[l][p] = (c > j) & (c <= r) & (r < o) ? u : f[l][p];
+      }
+    }
+  }
+  Lanes<double[1], kWarp> lg;
+  SMC_LANES(l) lg[l][0] = l < R ? log(pv[l]) : 0.0;
+  smc::group_sum<kWarp>(lg);
+  SMC_LANES(l) {
+    logdet[l] = failed[l] ? NAN : lg[l][0];
+    SMC_UNROLL for (int p = 0; p < W::kSq; ++p) {
+      const int r = W::row(l), c = W::col(l, p);
+      if (c <= r && r < o) L[r * o + c] = f[l][p];
+    }
+  }
+}
+
+// x <- F^-1 x for the columns of x (o rows on the lanes), from warp_factor's
+// L (in shared memory, written before the last warp sync) and ir: the
+// triangular solves L y = x, L' x = y by substitution; per row i, its
+// values scaled by its reciprocal pivot, passed to the other rows by
+// shuffles and taken off them. Selects, no branches. Where the
+// factorization failed, NaN (as bl_chol_solve). At o = 3 the cofactor form.
+template <int R>
+SMC_HD inline void warp_solve(const double* L, int o,
+                              Lanes<double, kWarp>& ir,
+                              Lanes<bool, kWarp>& failed,
+                              Lanes<double[Rows<R>::kRhs], kWarp>& x) {
+  using W = Rows<R>;
+  constexpr int K = W::kRhs;
+  if (o == 3) {
+    Lanes<double[K], kWarp> b0, b1, b2;
+    SMC_LANES(l) {
+      SMC_UNROLL for (int p = 0; p < K; ++p) b0[l][p] = b1[l][p] = b2[l][p] =
+          x[l][p];
+    }
+    warp_gather(b0, [=](int l) { return W::in_group(l, 0); });
+    warp_gather(b1, [=](int l) { return W::in_group(l, 1); });
+    warp_gather(b2, [=](int l) { return W::in_group(l, 2); });
+    SMC_LANES(l) {
+      const int r = W::row(l) < 3 ? W::row(l) : 0;  // row r of the cofactors
+      const double c0 = L[r], c1 = L[r == 0 ? 1 : r + 2],
+                   c2 = L[r == 0 ? 2 : r + 3];
+      SMC_UNROLL for (int p = 0; p < K; ++p) {
+        const double u = (c0 * b0[l][p] + c1 * b1[l][p] + c2 * b2[l][p]) * ir[l];
+        x[l][p] = W::row(l) < 3 ? u : x[l][p];
+      }
+    }
     return;
   }
-  for (int i = 0; i < o; ++i) {  // L y = b, y in x
-    double u = b[i * bs];
-    for (int q = 0; q < i; ++q) u = u - L[i * o + q] * x[q * xs];
-    x[i * xs] = u * inv[i];
+  SMC_UNROLL_BY(1) for (int k = 0; k < 2 * o; ++k) {  // L y = x, L' x = y
+    const bool down = k < o;
+    const int i = down ? k : 2 * o - 1 - k;  // the row scaled and passed on
+    Lanes<double, kWarp> li;  // L[r][i] going down, L[i][r] going up
+    SMC_LANES(l) {
+      const int r = W::row(l) < o ? W::row(l) : 0;
+      li[l] = L[down ? r * o + i : i * o + r];
+      SMC_UNROLL for (int p = 0; p < K; ++p)
+        x[l][p] = W::row(l) == i ? x[l][p] * ir[l] : x[l][p];
+    }
+    if (down ? i == o - 1 : i == 0) continue;  // no row beyond
+    SMC_UNROLL for (int p = 0; p < K; ++p) {
+      Lanes<double[1], kWarp> xi;
+      SMC_LANES(l) xi[l][0] = x[l][p];
+      warp_gather(xi, [=](int l) { return W::in_group(l, i); });
+      SMC_LANES(l) {
+        const int r = W::row(l);
+        const bool take = down ? (r > i) & (r < o) : r < i;
+        const double u = x[l][p] - li[l] * xi[l][0];
+        x[l][p] = take ? u : x[l][p];
+      }
+    }
   }
-  for (int i = o - 1; i >= 0; --i) {  // L' x = y
-    double u = x[i * xs];
-    for (int q = i + 1; q < o; ++q) u = u - L[q * o + i] * x[q * xs];
-    x[i * xs] = u * inv[i];
+  SMC_LANES(l) {
+    SMC_UNROLL for (int p = 0; p < K; ++p) x[l][p] = failed[l] ? NAN : x[l][p];
+  }
+}
+
+// x's rows from S [o][ld], its columns c0.. as x's columns 0.. (m of them;
+// the rest 0); and back
+template <int R>
+SMC_HD inline void warp_load(Lanes<double[Rows<R>::kRhs], kWarp>& x,
+                             const double* S, int ld, int c0, int o, int m) {
+  SMC_LANES(l) {
+    SMC_UNROLL for (int p = 0; p < Rows<R>::kRhs; ++p) {
+      const int r = Rows<R>::row(l), c = Rows<R>::col(l, p);
+      const bool in = (r < o) & (c < m);
+      const double u = S[in ? r * ld + c0 + c : 0];
+      x[l][p] = in ? u : 0.0;
+    }
+  }
+}
+template <int R>
+SMC_HD inline void warp_store(Lanes<double[Rows<R>::kRhs], kWarp>& x,
+                              double* S, int ld, int o, int m) {
+  SMC_LANES(l) {
+    SMC_UNROLL for (int p = 0; p < Rows<R>::kRhs; ++p) {
+      const int r = Rows<R>::row(l), c = Rows<R>::col(l, p);
+      if (r < o && c < m) S[r * ld + c] = x[l][p];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The product warps: a thread's share of a product
+// ---------------------------------------------------------------------------
+
+// Thread u of nb over C [rows][cols] (cols <= nb), C[r][c] = the sum over l
+// < len of a(r)[l] b[l * bl + c * bc], formed in index order from 0: column
+// u % cols, rows u / cols + g k (g = nb / cols), two rows at a time (two
+// independent sums, one chain of latency); epi(r, c, sum) stores.
+template <class RowOf, class Epi>
+SMC_HD inline void product(int u, int nb, int rows, int cols, int len,
+                           RowOf a, const double* b, int bl, int bc,
+                           Epi epi) {
+  const int g = nb / cols, c = u % cols;
+  if (u / cols >= g) return;
+  for (int r0 = u / cols; r0 < rows; r0 += 2 * g) {
+    const int r1 = r0 + g < rows ? r0 + g : r0;
+    const double* a0 = a(r0);
+    const double* a1 = a(r1);
+    double s0 = 0.0, s1 = 0.0;
+    SMC_UNROLL_BY(4) for (int l = 0; l < len; ++l) {
+      const double x = b[l * bl + c * bc];
+      s0 += a0[l] * x;
+      s1 += a1[l] * x;
+    }
+    epi(r0, c, s0);
+    if (r1 != r0) epi(r1, c, s1);
   }
 }
 
@@ -621,38 +863,55 @@ SMC_HD inline void psd_solve(const double* L, const double* inv,
 // d [o, nb], H [o, o, nb]; ys the observations [o][n_t] in the tile's last
 // o n_t doubles (the caller stages them); ok [nb] or null -> out[p], -inf
 // for a rejected particle. tile: kalman_doubles(n, k, o, n_t).
-template <int N>
+//
+// A filter step, by role (R: the rows of the innovation warp's layout, the
+// least of 4, 8, 16 that holds n_obs):
+//   warp 0          waits for v and Z W; solves F^-1 [v | Z W] and adds
+//                   the step's term; hands over the solution;
+//   product warps   wait for M; form M W'Z' and Z U = (Z W)(M W'Z'); hand
+//                   over Z U;
+//   warp 0          waits for Z U; forms F' = sym(F + Z U) and its guards,
+//                   its factor, F'^-1 Z W and M'; hands over M' and the
+//                   verdict;
+//   product warps   wait for the solution; form [W' | s'] = T [W | s] - K
+//                   F^-1 [Z W | -v], K' = K + (T W)(M W'Z'), and the next
+//                   step's v and Z W; hand them over.
+// F, M, K, [W | s] and Z W are kept twice: what the step reads and what it
+// forms.
+template <int N, int Ro>
 SMC_HD void kalman_block(const double* T, const double* R, const double* Q,
                          const double* Z, const double* d, const double* H,
                          int n_t, const unsigned char* ok, long long nb,
                          long long p, int n, int k, int o, int lyap_iter,
                          double* out, double* tile) {
+  static_assert(N > kWarp, "warp 0 and at least one product warp");
+  using W = Rows<Ro>;
   if (ok != nullptr && !ok[p]) {
     SMC_TEAM(N, t) {
       if (t == 0) out[p] = -INFINITY;
     }
     return;
   }
-  const int nn = n * n, oo = o * o, no = n * o;
+  const int nn = n * n, oo = o * o, no = n * o, o1 = o + 1;
   double* Ts = tile;
   double* Pk = Ts + nn;
   double* Zs = Pk + nn;  // [o][n]
   double* ds = Zs + no;
-  double* s = ds + o;
-  double* s2 = s + n;
-  double* v = s2 + n;
+  double* v = ds + o;
+  // F, M and Z W twice (a step's and the next step's), in turns
   double* F = v + o;
-  double* F2 = F + oo;
-  double* M = F2 + oo;
-  double* M2 = M + oo;
-  double* MW = M2 + oo;  // M W'Z'
-  double* G = MW + oo;   // F'^-1 Z W
-  double* Rm = G + oo;   // G M
-  double* L = Rm + oo;
-  double* sol = L + oo;  // [o][1 + o]
-  double* inv = sol + o * (o + 1);
-  double* sc = inv + o;  // total, bad, tr cap, log det, fail
-  double* red = sc + 8;
+  double* M = F + 2 * oo;
+  double* MW = M + 2 * oo;  // M W'Z'
+  double* ZW = MW + oo;
+  double* L = ZW + 2 * oo;
+  double* G = L + oo;   // F'^-1 Z W
+  double* Rm = G + oo;  // G M
+  double* sol = Rm + oo;  // F^-1 [v | Z W], [o][1 + o]
+  // warp 0's scalars: the verdict (1: rejected), the trace cap, the factor's
+  // log det, the total
+  double* sc = sol + o * o1;
+  enum { kFlag, kCap, kLogdet, kTotal };
+  double* red = sc + 4;
   double* un = red + red_doubles(N);
   const double* ys = tile + kalman_fixed(n, o) + kalman_union(n, k, o);
   // the doubling's buffers
@@ -660,11 +919,10 @@ SMC_HD void kalman_block(const double* T, const double* R, const double* Q,
   double* An = Ak + nn;
   double* tmp = An + nn;  // also Q R' [k][n]
   // the filter's, after it
-  double* K = un;  // [n][o]
-  double* K2 = K + no;
-  double* W = K2 + no;
-  double* W2 = W + no;
-  double* U = W2 + no;  // W M W'Z'
+  // K [n][o] and [W | s] [n][o + 1] twice, in turns
+  double* K = un;
+  double* Ws = K + 2 * no;
+  double* U = Ws + 2 * n * o1;  // [n][o]: P Z' before the filter, then T W
 
   SMC_TEAM(N, t) {
     const Slab sl = slab(t, N, n);
@@ -734,7 +992,9 @@ SMC_HD void kalman_block(const double* T, const double* R, const double* Q,
     An = c;
   }
 
-  // P Z' into U, then F1 (before symmetrizing, in F2), K1 = T P Z', W1 = K1
+  // P Z' into U, then F1 before symmetrizing (in F's second place), K1 = T
+  // P Z', W1 = K1,
+  // s = 0
   SMC_TEAM(N, t) {
     const Slab sl = slab(t, N, o);
     SMC_SLAB(sl, n, o, i, a) {
@@ -750,178 +1010,295 @@ SMC_HD void kalman_block(const double* T, const double* R, const double* Q,
       double u = 0.0;
       for (int l = 0; l < n; ++l) u += Ts[i * n + l] * U[l * o + a];
       K[i * o + a] = u;
-      W[i * o + a] = u;
+      Ws[i * o1 + a] = u;
     }
     const Slab sf = slab(t, N, o);
     SMC_SLAB(sf, o, o, a, b) {
       double u = 0.0;
       for (int l = 0; l < n; ++l) u += Zs[a * n + l] * U[l * o + b];
-      F2[a * o + b] = u + H[at(a, b, o, nb, p)];
+      F[oo + a * o + b] = u + H[at(a, b, o, nb, p)];
     }
-    for (int i = t; i < n; i += N) s[i] = 0.0;
-  }
-  block_sync();
-  SMC_TEAM(N, t) {
-    const Slab sf = slab(t, N, o);
-    SMC_SLAB(sf, o, o, a, b)
-        F[a * o + b] = 0.5 * (F2[a * o + b] + F2[b * o + a]);
-  }
-  block_sync();
-  SMC_TEAM(N, t) {
-    if (t == 0) {
-      psd_factor(F, o, L, inv, sc + 3);
-      double tr = 0.0;
-      for (int a = 0; a < o; ++a) tr = tr + F[a * o + a];
-      sc[0] = 0.0;                        // the total
-      sc[1] = 0.0;                        // bad
-      sc[2] = tr * (1.0 + 1e-6) + 1e-12;  // the trace cap
-    }
-  }
-  block_sync();
-  // M1 = sym(-F1^-1): F1^-1 into G, a column a thread
-  SMC_TEAM(N, t) {
-    for (int c = t; c < o; c += N) {
-      for (int a = 0; a < o; ++a) Rm[a * o + c] = a == c ? 1.0 : 0.0;
-      psd_solve(L, inv, sc + 3, o, Rm + c, o, G + c, o);
-    }
-  }
-  block_sync();
-  SMC_TEAM(N, t) {
-    const Slab sf = slab(t, N, o);
-    SMC_SLAB(sf, o, o, a, b)
-        M[a * o + b] = 0.5 * (-G[a * o + b] + -G[b * o + a]);
+    for (int i = t; i < n; i += N) Ws[i * o1 + o] = 0.0;
   }
   block_sync();
 
-  const int o1 = o + 1;
-  for (int step = 0; step < n_t; ++step) {
-    if (sc[1] != 0.0 || !finite(sc[0])) break;  // rejected: -inf
-    // v = (y - d) - Z s; Z W into sol's columns 1..o
-    SMC_TEAM(N, t) {
-      for (int a = t; a < o; a += N) {
-        double u = 0.0;
-        for (int l = 0; l < n; ++l) u += Zs[a * n + l] * s[l];
-        v[a] = (ys[a * n_t + step] - ds[a]) - u;
+  // warp 0's state, in every lane: the lane's row's reciprocal pivot, the
+  // factor's failure, the guards' verdict
+  Lanes<double, kWarp> ir;
+  Lanes<bool, kWarp> failed, bad;
+  // F1 = sym(.), its factor and trace cap, M1 = sym(-F1^-1); v and Z W of
+  // the first step
+  SMC_INNOVATION_WARP {
+    Lanes<double[W::kRhs], kWarp> x;
+    SMC_LANES(l) {
+      SMC_UNROLL for (int q = 0; q < W::kRhs; ++q) {
+        const int r = W::row(l), c = W::col(l, q);
+        const bool in = (r < o) & (c < o);
+        const int rc = in ? r * o + c : 0, cr = in ? c * o + r : 0;
+        x[l][q] = 0.5 * (F[oo + rc] + F[oo + cr]);
+        if (in) F[rc] = x[l][q];
       }
-      const Slab sf = slab(t, N, o);
-      SMC_SLAB(sf, o, o, a, b) {
-        double u = 0.0;
-        for (int l = 0; l < n; ++l) u += Zs[a * n + l] * W[l * o + b];
-        G[a * o + b] = u;  // Z W, kept for the M-update
+      double tr = 0.0;
+      SMC_UNROLL_BY(1) for (int a = 0; a < o; ++a) {
+        const int aa = a * o + a;
+        tr = tr + 0.5 * (F[oo + aa] + F[oo + aa]);  // F[a][a]
       }
-    }
-    block_sync();
-    // F^-1 [v | Z W], a column a thread; M W'Z'
-    SMC_TEAM(N, t) {
-      for (int c = t; c < o1; c += N)
-        psd_solve(L, inv, sc + 3, o, c == 0 ? v : G + (c - 1), c == 0 ? 1 : o,
-                  sol + c, o1);
-      const Slab sf = slab(t, N, o);
-      SMC_SLAB(sf, o, o, a, b) {
-        double u = 0.0;
-        for (int l = 0; l < o; ++l) u += M[a * o + l] * G[b * o + l];
-        MW[a * o + b] = u;
+      bad[l] = false;
+      if (l == 0) {
+        sc[kFlag] = 0.0;
+        sc[kCap] = tr * (1.0 + 1e-6) + 1e-12;
+        sc[kTotal] = 0.0;
       }
     }
-    block_sync();
-    // the step's term; s' = T s + K F^-1 v; U = W (M W'Z')
-    SMC_TEAM(N, t) {
-      if (t == 0) {
-        double quad = 0.0;
-        for (int a = 0; a < o; ++a) quad = quad + v[a] * sol[a * o1];
-        sc[0] = sc[0] - 0.5 * (o * kLog2Pi + sc[3] + quad);
-        if (quad < 0.0) sc[1] = 1.0;
-      }
-      for (int i = t; i < n; i += N) {
-        double ts = 0.0, kv = 0.0;
-        for (int l = 0; l < n; ++l) ts += Ts[i * n + l] * s[l];
-        for (int a = 0; a < o; ++a) kv += K[i * o + a] * sol[a * o1];
-        s2[i] = ts + kv;
-      }
-      const Slab sl = slab(t, N, o);
-      SMC_SLAB(sl, n, o, i, b) {
-        double u = 0.0;
-        for (int a = 0; a < o; ++a) u += W[i * o + a] * MW[a * o + b];
-        U[i * o + b] = u;
+    if (o == 3) smc::smc_sync();  // the cofactors read F
+    Lanes<double, kWarp> logdet;
+    warp_factor<Ro>(x, F, o, L, ir, logdet, failed);
+    SMC_LANES(l) {
+      if (l == 0) sc[kLogdet] = logdet[l];
+    }
+    smc::smc_sync();
+    SMC_LANES(l) {
+      SMC_UNROLL for (int q = 0; q < W::kRhs; ++q)
+        x[l][q] = W::row(l) == W::col(l, q) ? 1.0 : 0.0;
+    }
+    warp_solve<Ro>(L, o, ir, failed, x);
+    warp_store<Ro>(x, G, o, o, o);
+    smc::smc_sync();
+    SMC_LANES(l) {
+      SMC_UNROLL for (int q = 0; q < W::kSq; ++q) {
+        const int r = W::row(l), c = W::col(l, q);
+        const bool in = (r < o) & (c < o);
+        const int rc = in ? r * o + c : 0, cr = in ? c * o + r : 0;
+        const double u = 0.5 * (-G[rc] + -G[cr]);
+        if (in) M[rc] = u;
       }
     }
-    block_sync();
-    // F' = sym(F + Z U); K' = K + T U; W' = T W - K F^-1 Z W
-    SMC_TEAM(N, t) {
-      const Slab sf = slab(t, N, o);
-      SMC_SLAB(sf, o, o, a, b) {
-        double zu = 0.0, uz = 0.0;
-        for (int l = 0; l < n; ++l) {
-          zu += Zs[a * n + l] * U[l * o + b];
-          uz += Zs[b * n + l] * U[l * o + a];
-        }
-        F2[a * o + b] = 0.5 * ((F[a * o + b] + zu) + (F[b * o + a] + uz));
-      }
-      const Slab sl = slab(t, N, o);
-      SMC_SLAB(sl, n, o, i, a) {
-        double tu = 0.0, tw = 0.0, kz = 0.0;
-        for (int l = 0; l < n; ++l) {
-          tu += Ts[i * n + l] * U[l * o + a];
-          tw += Ts[i * n + l] * W[l * o + a];
-        }
-        for (int b = 0; b < o; ++b) kz += K[i * o + b] * sol[b * o1 + 1 + a];
-        K2[i * o + a] = K[i * o + a] + tu;
-        W2[i * o + a] = tw - kz;
-      }
-    }
-    block_sync();
-    // the factor of F' (this step's M-update, the next step's solve) and
-    // the guards on F'
-    SMC_TEAM(N, t) {
-      if (t == 0) {
-        psd_factor(F2, o, L, inv, sc + 3);
-        double tr = 0.0;
-        bool bad = false;
-        for (int a = 0; a < o; ++a) {
-          bad = bad || F2[a * o + a] <= 0.0;
-          tr = tr + F2[a * o + a];
-        }
-        if (bad || tr > sc[2]) sc[1] = 1.0;
-      }
-    }
-    block_sync();
-    // F'^-1 Z W into sol's columns 1..o (F^-1 Z W is read no more)
-    SMC_TEAM(N, t) {
-      for (int c = t; c < o; c += N)
-        psd_solve(L, inv, sc + 3, o, G + c, o, sol + 1 + c, o1);
-    }
-    block_sync();
-    SMC_TEAM(N, t) {
-      const Slab sf = slab(t, N, o);
-      SMC_SLAB(sf, o, o, a, b) {
-        double u = 0.0;
-        for (int l = 0; l < o; ++l) u += sol[a * o1 + 1 + l] * M[l * o + b];
-        Rm[a * o + b] = u;
-      }
-    }
-    block_sync();
-    // M' = sym(M - (M W'Z') (F'^-1 Z W M))
-    SMC_TEAM(N, t) {
-      const Slab sf = slab(t, N, o);
-      SMC_SLAB(sf, o, o, a, b) {
-        double ab = 0.0, ba = 0.0;
-        for (int l = 0; l < o; ++l) {
-          ab += MW[a * o + l] * Rm[l * o + b];
-          ba += MW[b * o + l] * Rm[l * o + a];
-        }
-        M2[a * o + b] = 0.5 * ((M[a * o + b] - ab) + (M[b * o + a] - ba));
-      }
-    }
-    block_sync();
-    double* c;
-    c = F; F = F2; F2 = c;
-    c = M; M = M2; M2 = c;
-    c = K; K = K2; K2 = c;
-    c = W; W = W2; W2 = c;
-    c = s; s = s2; s2 = c;
   }
+  // [Z W | Z s] for v and Z W (no v without observations: ys is empty)
+  const auto z_row = [=](int a) { return (const double*)(Zs + a * n); };
+  const auto t_row = [=](int i) { return (const double*)(Ts + i * n); };
   SMC_TEAM(N, t) {
-    if (t == 0) out[p] = sc[1] == 0.0 && finite(sc[0]) ? sc[0] : -INFINITY;
+    if (t >= kWarp)
+      product(t - kWarp, N - kWarp, o, o1, n, z_row, Ws, o1, 1,
+              [=](int a, int c, double u) {
+                if (c < o)
+                  ZW[a * o + c] = u;
+                else if (n_t > 0)
+                  v[a] = (ys[a * n_t] - ds[a]) - u;
+              });
+  }
+  block_sync();
+
+  for (int step = 0; step < n_t; ++step) {
+    const bool more = step + 1 < n_t;
+    // this step's F, M, K, [W | s] and Z W, and the next step's
+    const int cur = step % 2, nxt = 1 - cur;
+    double* const Fc = F + cur * oo;
+    double* const Fn = F + nxt * oo;
+    double* const Mc = M + cur * oo;
+    double* const Mn = M + nxt * oo;
+    double* const Kc = K + cur * no;
+    double* const Kn = K + nxt * no;
+    double* const Wc = Ws + cur * n * o1;
+    double* const Wn = Ws + nxt * n * o1;
+    double* const zc = ZW + cur * oo;
+    double* const zn = ZW + nxt * oo;
+    // warp 0: F^-1 [v | Z W] and the step's term
+    SMC_INNOVATION_WARP {
+      if (step > 0) signal_wait<N>(kZWReady);
+      Lanes<double[W::kRhs], kWarp> x;
+      SMC_LANES(l) {
+        SMC_UNROLL for (int q = 0; q < W::kRhs; ++q) {
+          const int r = W::row(l), c = W::col(l, q);
+          const bool in = (r < o) & (c <= o);
+          const double u = c == 0 ? v[in ? r : 0] : zc[in ? r * o + c - 1 : 0];
+          x[l][q] = in ? u : 0.0;
+        }
+      }
+      warp_solve<Ro>(L, o, ir, failed, x);
+      warp_store<Ro>(x, sol, o1, o, o1);
+      smc::smc_sync();
+      SMC_LANES(l) {
+        double quad = 0.0;
+        SMC_UNROLL_BY(1) for (int a = 0; a < o; ++a)
+          quad = quad + v[a] * sol[a * o1];
+        const double total =
+            sc[kTotal] - 0.5 * (o * kLog2Pi + sc[kLogdet] + quad);
+        bad[l] = bad[l] | (quad < 0.0);
+        if (l == 0) sc[kTotal] = total;
+      }
+      signal_post<N>(kSolReady);
+    }
+    // the product warps: M W'Z', then Z U = (Z W) (M W'Z') in the next F's
+    // place
+    SMC_PRODUCT_WARPS {
+      if (step > 0) {
+        signal_wait<N>(kMReady);
+        if (sc[kFlag] != 0.0) break;  // rejected: -inf
+      }
+      SMC_TEAM(N, t) {
+        if (t >= kWarp)
+          product(t - kWarp, N - kWarp, o, o, o,
+                  [=](int a) { return (const double*)(Mc + a * o); }, zc, 1,
+                  o, [=](int a, int b, double u) { MW[a * o + b] = u; });
+      }
+      product_sync<N>();
+      SMC_TEAM(N, t) {
+        if (t >= kWarp)
+          product(t - kWarp, N - kWarp, o, o, o,
+                  [=](int a) { return (const double*)(zc + a * o); }, MW, o,
+                  1, [=](int a, int b, double u) { Fn[a * o + b] = u; });
+      }
+      signal_post<N>(kZUReady);
+    }
+    // warp 0: F' = sym(F + Z U) and its guards; its factor (this step's
+    // M-update, the next step's solve); F'^-1 Z W; M' = sym(M - (M W'Z')
+    // (F'^-1 Z W M)); the verdict
+    SMC_INNOVATION_WARP {
+      signal_wait<N>(kZUReady);
+      Lanes<double[W::kRhs], kWarp> x;
+      SMC_LANES(l) {  // Z U is in F''s place, read before F' goes there
+        SMC_UNROLL for (int q = 0; q < W::kRhs; ++q) {
+          const int r = W::row(l), c = W::col(l, q);
+          const bool in = (r < o) & (c < o);
+          const int ab = in ? r * o + c : 0, ba = in ? c * o + r : 0;
+          x[l][q] = 0.5 * ((Fc[ab] + Fn[ab]) + (Fc[ba] + Fn[ba]));
+        }
+        double tr = 0.0;
+        bool neg = false;
+        SMC_UNROLL_BY(1) for (int a = 0; a < o; ++a) {
+          const int aa = a * o + a;
+          const double faa = 0.5 * ((Fc[aa] + Fn[aa]) + (Fc[aa] + Fn[aa]));
+          neg = neg | (faa <= 0.0);
+          tr = tr + faa;
+        }
+        bad[l] = bad[l] | neg | (tr > sc[kCap]);
+      }
+      smc::smc_sync();
+      SMC_LANES(l) {
+        SMC_UNROLL for (int q = 0; q < W::kRhs; ++q) {
+          const int r = W::row(l), c = W::col(l, q);
+          if ((r < o) & (c < o)) Fn[r * o + c] = x[l][q];
+        }
+      }
+      if (o == 3) smc::smc_sync();  // the cofactors read Fn
+      Lanes<double, kWarp> logdet;
+      warp_factor<Ro>(x, Fn, o, L, ir, logdet, failed);
+      SMC_LANES(l) {
+        if (l == 0) sc[kLogdet] = logdet[l];
+      }
+      smc::smc_sync();
+      warp_load<Ro>(x, zc, o, 0, o, o);
+      warp_solve<Ro>(L, o, ir, failed, x);
+      warp_store<Ro>(x, G, o, o, o);
+      smc::smc_sync();
+      // Rm = G M, then (M W'Z') Rm, then M' = sym(M - (M W'Z') Rm): the
+      // lanes' entries in the rows' layout
+      SMC_LANES(l) {
+        const int r = W::row(l) < o ? W::row(l) : 0;
+        double u[W::kSq];
+        SMC_UNROLL for (int q = 0; q < W::kSq; ++q) u[q] = 0.0;
+        SMC_UNROLL_BY(1) for (int b = 0; b < o; ++b) {
+          const double g = G[r * o + b];
+          SMC_UNROLL for (int q = 0; q < W::kSq; ++q) {
+            const int c = W::col(l, q) < o ? W::col(l, q) : 0;
+            u[q] += g * Mc[b * o + c];
+          }
+        }
+        SMC_UNROLL for (int q = 0; q < W::kSq; ++q) {
+          const int c = W::col(l, q);
+          if ((W::row(l) < o) & (c < o)) Rm[r * o + c] = u[q];
+        }
+      }
+      smc::smc_sync();
+      SMC_LANES(l) {  // (M W'Z') Rm into G
+        const int r = W::row(l) < o ? W::row(l) : 0;
+        double u[W::kSq];
+        SMC_UNROLL for (int q = 0; q < W::kSq; ++q) u[q] = 0.0;
+        SMC_UNROLL_BY(1) for (int b = 0; b < o; ++b) {
+          const double mw = MW[r * o + b];
+          SMC_UNROLL for (int q = 0; q < W::kSq; ++q) {
+            const int c = W::col(l, q) < o ? W::col(l, q) : 0;
+            u[q] += mw * Rm[b * o + c];
+          }
+        }
+        SMC_UNROLL for (int q = 0; q < W::kSq; ++q) {
+          const int c = W::col(l, q);
+          if ((W::row(l) < o) & (c < o)) G[r * o + c] = u[q];
+        }
+      }
+      smc::smc_sync();
+      SMC_LANES(l) {
+        const int r = W::row(l) < o ? W::row(l) : 0;
+        SMC_UNROLL for (int q = 0; q < W::kSq; ++q) {
+          const int c = W::col(l, q) < o ? W::col(l, q) : 0;
+          const int rc = r * o + c, cr = c * o + r;
+          const double u = 0.5 * ((Mc[rc] - G[rc]) + (Mc[cr] - G[cr]));
+          if ((W::row(l) < o) & (W::col(l, q) < o)) Mn[rc] = u;
+        }
+      }
+      bool rejected = false;
+      SMC_LANES(l) {
+        rejected = bad[l] | !finite(sc[kTotal]);
+        if (l == 0) sc[kFlag] = rejected ? 1.0 : 0.0;
+      }
+      if (more) signal_post<N>(kMReady);
+      if (rejected) {  // -inf; the product warps' last hand-off is taken
+        if (more) signal_wait<N>(kZWReady);
+        break;
+      }
+    }
+    // the product warps: [W' | s'] = T [W | s] - K F^-1 [Z W | -v] (T W
+    // kept in U); then K' = K + T U = K + (T W) (M W'Z') and the next step's
+    // v and Z W
+    SMC_PRODUCT_WARPS {
+      signal_wait<N>(kSolReady);
+      SMC_TEAM(N, t) {
+        if (t >= kWarp)
+          product(t - kWarp, N - kWarp, n, o1, n, t_row, Wc, o1, 1,
+                  [=](int i, int c, double u) {
+                    double kz = 0.0;
+                    if (c < o) {
+                      for (int b = 0; b < o; ++b)
+                        kz += Kc[i * o + b] * sol[b * o1 + 1 + c];
+                      Wn[i * o1 + c] = u - kz;
+                      U[i * o + c] = u;
+                    } else {
+                      for (int a = 0; a < o; ++a)
+                        kz += Kc[i * o + a] * sol[a * o1];
+                      Wn[i * o1 + o] = u + kz;
+                    }
+                  });
+      }
+      product_sync<N>();
+      SMC_TEAM(N, t) {
+        if (t >= kWarp)
+          product(t - kWarp, N - kWarp, n, o, o,
+                  [=](int i) { return (const double*)(U + i * o); }, MW, o, 1,
+                  [=](int i, int a, double u) {
+                    Kn[i * o + a] = Kc[i * o + a] + u;
+                  });
+      }
+      if (more) {
+        SMC_TEAM(N, t) {
+          if (t >= kWarp)
+            product(t - kWarp, N - kWarp, o, o1, n, z_row, Wn, o1, 1,
+                    [=](int a, int c, double u) {
+                      if (c < o)
+                        zn[a * o + c] = u;
+                      else
+                        v[a] = (ys[a * n_t + step + 1] - ds[a]) - u;
+                    });
+        }
+        signal_post<N>(kZWReady);
+      }
+    }
+  }
+  SMC_INNOVATION_WARP {
+    SMC_LANES(l) {
+      if (l == 0)
+        out[p] = !bad[l] && finite(sc[kTotal]) ? sc[kTotal] : -INFINITY;
+    }
   }
 }
 

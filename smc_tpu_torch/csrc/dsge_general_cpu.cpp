@@ -16,6 +16,27 @@ bool in_domain(int n, int k, int o) {
          o <= kMaxObs;
 }
 
+// warp_factor and warp_solve on each of nb systems (smc_general_psd_cpu)
+template <int R>
+void psd_all(int o, int m, const double* F, const double* B, double* X,
+             double* logdet, long long nb) {
+  std::vector<double> L(o * o);
+  for (long long q = 0; q < nb; ++q) {
+    const double* Fq = F + q * o * o;
+    const double* Bq = B + q * o * m;
+    double* Xq = X + q * o * m;
+    Lanes<double[Rows<R>::kRhs], kWarp> x;
+    Lanes<double, kWarp> ir, ld;
+    Lanes<bool, kWarp> failed;
+    warp_load<R>(x, Fq, o, 0, o, o);
+    warp_factor<R>(x, Fq, o, L.data(), ir, ld, failed);
+    warp_load<R>(x, Bq, m, 0, o, m);
+    warp_solve<R>(L.data(), o, ir, failed, x);
+    warp_store<R>(x, Xq, m, o, m);
+    logdet[q] = ld[0];
+  }
+}
+
 }  // namespace
 
 // the tiles' bytes, as the card's library reports them (-1 outside the
@@ -40,6 +61,21 @@ extern "C" int smc_general_gj_cpu(int n, int w, double* W, int* piv_rows) {
     gauss_jordan<kSmallTeam>(W, w, n, w, fac.data(), row.data(), piv_rows);
   else
     gauss_jordan<kLargeTeam>(W, w, n, w, fac.data(), row.data(), piv_rows);
+  return 0;
+}
+
+// The innovation warp's factor and solve (warp_factor, warp_solve) of each
+// of nb systems: F [nb][o][o] symmetric, B [nb][o][m], m <= o + 1 -> X
+// [nb][o][m] = F^-1 B and logdet [nb] (NaN where the factorization failed).
+extern "C" int smc_general_psd_cpu(int o, int m, const double* F,
+                                   const double* B, double* X,
+                                   double* logdet, long long nb) {
+  if (o < 1 || o > kMaxObs || m < 1 || m > o + 1 || nb < 0) return -1;
+  switch (rows_for(o)) {
+    case 4: psd_all<4>(o, m, F, B, X, logdet, nb); break;
+    case 8: psd_all<8>(o, m, F, B, X, logdet, nb); break;
+    default: psd_all<16>(o, m, F, B, X, logdet, nb);
+  }
   return 0;
 }
 
@@ -75,13 +111,15 @@ extern "C" int smc_general_kalman_cpu(int n, int k, int o, const double* T,
   std::vector<double> tile(kalman_doubles(n, k, o, n_t));
   double* ys = tile.data() + kalman_fixed(n, o) + kalman_union(n, k, o);
   for (int i = 0; i < o * n_t; ++i) ys[i] = data[i];
-  for (long long p = 0; p < nb; ++p) {
-    if (team_for(n) == kSmallTeam)
-      kalman_block<kSmallTeam>(T, R, Q, Z, d, H, n_t, ok, nb, p, n, k, o,
-                               lyap_iter, out, tile.data());
-    else
-      kalman_block<kLargeTeam>(T, R, Q, Z, d, H, n_t, ok, nb, p, n, k, o,
-                               lyap_iter, out, tile.data());
-  }
+  const auto block = team_for(n) == kSmallTeam
+                         ? (rows_for(o) == 4   ? kalman_block<kSmallTeam, 4>
+                            : rows_for(o) == 8 ? kalman_block<kSmallTeam, 8>
+                                               : kalman_block<kSmallTeam, 16>)
+                         : (rows_for(o) == 4   ? kalman_block<kLargeTeam, 4>
+                            : rows_for(o) == 8 ? kalman_block<kLargeTeam, 8>
+                                               : kalman_block<kLargeTeam, 16>);
+  for (long long p = 0; p < nb; ++p)
+    block(T, R, Q, Z, d, H, n_t, ok, nb, p, n, k, o, lyap_iter, out,
+          tile.data());
   return 0;
 }

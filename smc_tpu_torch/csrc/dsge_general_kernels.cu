@@ -9,11 +9,13 @@
 //                        smc_tpu/ops/linalg.py::bl_psd_fast_solve)
 //
 // Each kernel comes in two block sizes, kSmallTeam threads for n_state up
-// to kSmallMax and kLargeTeam beyond (team_for); the particle's tile lives
-// in dynamic shared memory, whose limit smc_general_prepare raises once per
-// device. A launcher launches on the given stream, does not synchronise,
-// and returns cudaGetLastError() (nonzero: the launch was refused), or -1
-// for a shape outside the domain or a tile past the shared memory.
+// to kSmallMax and kLargeTeam beyond (team_for), the Kalman kernel also in
+// three widths of its innovation warp's row groups, 4, 8 or 16 lanes by
+// n_obs (rows_for); the particle's tile lives in dynamic shared memory,
+// whose limit smc_general_prepare raises once per device. A launcher
+// launches on the given stream, does not synchronise, and returns
+// cudaGetLastError() (nonzero: the launch was refused), or -1 for a shape
+// outside the domain or a tile past the shared memory.
 #include <cuda_runtime.h>
 
 #include "dsge_general.cuh"
@@ -34,10 +36,19 @@ re_general_kernel(const double* __restrict__ A, const double* __restrict__ B,
               tol, smem);
 }
 
-template <int N>
-__global__ void
+// The Kalman kernel's register cap, from the threads an SM is to hold: up to
+// n_obs 8, 768 (three large blocks, as many as Smets-Wouters' 70 kB tile
+// lets share an SM), 80 registers a thread; beyond, the wider innovation
+// rows take more: 256 threads, no cap. Without a cap ptxas takes more than
+// 80, and fewer blocks fit.
+constexpr int kalman_threads_per_sm(int R) {
+  return R <= 8 ? 3 * kLargeTeam : kLargeTeam;
+}
+
+template <int N, int R>
+__global__ void __launch_bounds__(N, kalman_threads_per_sm(R) / N)
 kalman_general_kernel(const double* __restrict__ T,
-                      const double* __restrict__ R,
+                      const double* __restrict__ Rm,
                       const double* __restrict__ Q,
                       const double* __restrict__ Z,
                       const double* __restrict__ d,
@@ -50,8 +61,8 @@ kalman_general_kernel(const double* __restrict__ T,
   double* ys = smem + kalman_fixed(n, o) + kalman_union(n, k, o);
   for (int i = threadIdx.x; i < o * n_t; i += N) ys[i] = data[i];
   __syncthreads();
-  kalman_block<N>(T, R, Q, Z, d, H, n_t, ok, nb, (long long)blockIdx.x, n, k,
-                  o, lyap_iter, out, smem);
+  kalman_block<N, R>(T, Rm, Q, Z, d, H, n_t, ok, nb, (long long)blockIdx.x, n,
+                     k, o, lyap_iter, out, smem);
 }
 
 bool in_domain(int n, int k, int o) {
@@ -74,8 +85,12 @@ extern "C" int smc_general_prepare(int bytes) {
   if (e == cudaSuccess) e = f;
   SMC_SET(re_general_kernel<kSmallTeam>)
   SMC_SET(re_general_kernel<kLargeTeam>)
-  SMC_SET(kalman_general_kernel<kSmallTeam>)
-  SMC_SET(kalman_general_kernel<kLargeTeam>)
+  SMC_SET((kalman_general_kernel<kSmallTeam, 4>))
+  SMC_SET((kalman_general_kernel<kSmallTeam, 8>))
+  SMC_SET((kalman_general_kernel<kSmallTeam, 16>))
+  SMC_SET((kalman_general_kernel<kLargeTeam, 4>))
+  SMC_SET((kalman_general_kernel<kLargeTeam, 8>))
+  SMC_SET((kalman_general_kernel<kLargeTeam, 16>))
 #undef SMC_SET
   return (int)e;
 }
@@ -118,13 +133,20 @@ extern "C" int smc_general_kalman(int n, int k, int o, const double* T,
   if (bytes < 0 || bytes > kSmemLimit || nb < 1 || nb > 0x7fffffffLL)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (team_for(n) == kSmallTeam)
-    kalman_general_kernel<kSmallTeam>
-        <<<(unsigned int)nb, kSmallTeam, bytes, s>>>(
-            T, R, Q, Z, d, H, data, n_t, ok, nb, n, k, o, lyap_iter, out);
-  else
-    kalman_general_kernel<kLargeTeam>
-        <<<(unsigned int)nb, kLargeTeam, bytes, s>>>(
-            T, R, Q, Z, d, H, data, n_t, ok, nb, n, k, o, lyap_iter, out);
+#define SMC_LAUNCH(NT, RO)                                                  \
+  kalman_general_kernel<NT, RO><<<(unsigned int)nb, NT, bytes, s>>>(        \
+      T, R, Q, Z, d, H, data, n_t, ok, nb, n, k, o, lyap_iter, out)
+  const bool small = team_for(n) == kSmallTeam;
+  switch (rows_for(o)) {
+    case 4:
+      if (small) SMC_LAUNCH(kSmallTeam, 4); else SMC_LAUNCH(kLargeTeam, 4);
+      break;
+    case 8:
+      if (small) SMC_LAUNCH(kSmallTeam, 8); else SMC_LAUNCH(kLargeTeam, 8);
+      break;
+    default:
+      if (small) SMC_LAUNCH(kSmallTeam, 16); else SMC_LAUNCH(kLargeTeam, 16);
+  }
+#undef SMC_LAUNCH
   return (int)cudaGetLastError();
 }

@@ -18,9 +18,12 @@
 #ifdef __CUDACC__
 #define SMC_HD __host__ __device__
 #define SMC_UNROLL _Pragma("unroll")
+#define SMC_PRAGMA(x) _Pragma(#x)
+#define SMC_UNROLL_BY(k) SMC_PRAGMA(unroll k)
 #else
 #define SMC_HD
 #define SMC_UNROLL
+#define SMC_UNROLL_BY(k)
 #endif
 
 namespace smc {

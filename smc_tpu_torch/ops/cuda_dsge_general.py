@@ -26,9 +26,13 @@ recursion captures them.
 The kernels (csrc/dsge_general_kernels.cu, bodies in
 csrc/dsge_general.cuh) run one block per particle with the particle's
 matrices in shared memory (the RE tile 78 kB at Smets-Wouters' n_state 37),
-a block of 64 threads up to n_state 16 and 256 beyond. Their bound is f64
-arithmetic; a particle's chain of small phases sets their time. PERF.md
-holds the measured times.
+a block of 64 threads up to n_state 16 and 256 beyond. In the Kalman
+filter's recursion warp 0 does the n_obs-sized algebra (the Cholesky
+factor, log det, solves, M-update and guards) with the rows in its lanes'
+registers, exchanged by shuffles, and the other warps the n_state-sized
+products; the two hand results over at named barriers. A particle's chain
+of small dependent steps, not the card's f64 rate, sets the kernels' time.
+PERF.md holds the measured times.
 """
 
 from __future__ import annotations
@@ -65,12 +69,14 @@ def re_smem_bytes(n_s: int, n_k: int) -> int:
 
 
 def kalman_smem_bytes(n_s: int, n_k: int, n_o: int, n_t: int) -> int:
-    """The Kalman kernel's tile (kalman_doubles): T, P, Z and the filter's
-    vectors and n_obs-square matrices, the doubling's buffers or the
-    filter's [n_s, n_o] ones, and the n_o x n_t observations."""
-    fixed = (2 * n_s * n_s + n_o * n_s + n_o + 2 * n_s + n_o + 8 * n_o * n_o
-             + n_o * (n_o + 1) + n_o + 8 + _red(n_s))
-    union = max(2 * n_s * n_s + max(n_s * n_s, n_k * n_s), 5 * n_s * n_o)
+    """The Kalman kernel's tile (kalman_doubles): T, P, Z, d and v, ten
+    n_obs-square matrices, the innovation solve and 4 scalars, the
+    doubling's buffers or the filter's [n_s, n_o] ones (K and [W | s] twice,
+    T W), and the n_o x n_t observations."""
+    fixed = (2 * n_s * n_s + n_o * n_s + 2 * n_o + 10 * n_o * n_o
+             + n_o * (n_o + 1) + 4 + _red(n_s))
+    union = max(2 * n_s * n_s + max(n_s * n_s, n_k * n_s),
+                5 * n_s * n_o + 2 * n_s)
     return 8 * (fixed + union + n_o * n_t)
 
 

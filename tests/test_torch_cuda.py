@@ -308,6 +308,79 @@ def test_general_kernels_across_shapes_match_plain(dev, shape):
     assert torch.equal(ll2[keep], ll[keep])
 
 
+def _host_build():
+    import shutil
+    from torch_parity import GeneralHostBuild
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the host version of the block bodies")
+    return GeneralHostBuild()
+
+
+def test_general_kalman_at_sw_shape_matches_host_build(dev):
+    """The Kalman kernel at SW's shape (37, 7, 7) against its host build
+    (the same block body through g++, on the CPU) and the plain version,
+    on the card's RE solutions, in SW's bands."""
+    from smc_tpu_torch.models.dsge import bl_kalman_loglike_chandrasekhar
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    sys_t, rest = _sw_inputs(dev)
+    X, M, ok = g.solve_linear_re(*sys_t)
+    got = g.kalman_chandrasekhar(X, M, *rest, ok=ok).cpu().numpy()
+    cpu = [x.cpu() for x in (X, M, *rest)]
+    host = _host_build().kalman(*cpu, ok.cpu()).numpy()
+    want = torch.where(ok.cpu(), bl_kalman_loglike_chandrasekhar(*cpu),
+                       float("-inf")).numpy()
+    assert_sw_loglh_close(got, host)
+    assert_sw_loglh_close(got, want)
+
+
+@pytest.mark.parametrize("n_o", [2, 3, 5, 7, 16])
+@pytest.mark.parametrize("n_s", [12, 37])
+def test_general_kalman_across_n_obs_matches_host_build(dev, n_s, n_o):
+    """The Kalman kernel on 257 synthetic systems at each n_obs (the
+    cofactor form at 3, the innovation warp's Cholesky otherwise), both
+    block sizes (one product warp at n_state 12, seven at 37), against its
+    host build and the plain version."""
+    from torch_parity import synthetic_system
+    from smc_tpu_torch.models.dsge import bl_kalman_loglike_chandrasekhar
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    sys_np, data = synthetic_system(n_s, 4, 257, n_t=40, n_o=n_o)
+    A, B, C, D, Q, Z, d, H = (torch.as_tensor(x) for x in sys_np)
+    data = torch.as_tensor(data)
+    X, M, ok = bl_solve_linear_re(A, B, C, D)
+    assert bool(ok.all())
+    cpu = (X, M, Q, Z, d, H, data)
+    before = g.LAUNCHES["kalman_general"]
+    got = g.kalman_chandrasekhar(*(x.to(dev) for x in cpu), ok=ok.to(dev))
+    assert g.LAUNCHES["kalman_general"] == before + 1
+    host = _host_build().kalman(*cpu, ok)
+    want = bl_kalman_loglike_chandrasekhar(*cpu)
+    assert_loglh_close(got.cpu().numpy(), host.numpy())
+    assert_loglh_close(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("n_s,n_o", [(5, 2), (5, 3), (20, 7), (20, 16)])
+def test_general_kalman_without_observations(dev, n_s, n_o):
+    """n_t = 0: the kernel reads no observation and returns 0 for every
+    particle, as its host build and the plain version do, and the card's
+    context stays sound for the next launch."""
+    from torch_parity import synthetic_system
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    sys_np, data = synthetic_system(n_s, 2, 33, n_t=1, n_o=n_o)
+    A, B, C, D, Q, Z, d, H = (torch.as_tensor(x) for x in sys_np)
+    X, M, ok = bl_solve_linear_re(A, B, C, D)
+    assert bool(ok.all())
+    cpu = (X, M, Q, Z, d, H, torch.zeros((n_o, 0), dtype=torch.float64))
+    got = g.kalman_chandrasekhar(*(x.to(dev) for x in cpu), ok=ok.to(dev))
+    torch.cuda.synchronize(dev)
+    zero = torch.zeros(33, dtype=torch.float64)
+    assert torch.equal(got.cpu(), zero)
+    assert torch.equal(_host_build().kalman(*cpu, ok), zero)
+    one = g.kalman_chandrasekhar(*(x.to(dev) for x in cpu[:-1]),
+                                 torch.as_tensor(data).to(dev), ok=ok.to(dev))
+    torch.cuda.synchronize(dev)
+    assert bool(torch.isfinite(one).all())
+
+
 def test_general_kernels_in_a_cuda_graph(dev):
     """SW's and AS-2obs's likelihood captured in one CUDA graph (no host
     read, no attribute set, no allocation from the host inside the calls):

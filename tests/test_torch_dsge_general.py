@@ -10,7 +10,6 @@ arithmetic, pivoting and exits; the kernels themselves run only on the card
 of LinearDSGE as a function of shapes and flags, the tile sizes the route
 is decided on, and the wrappers' CPU path."""
 
-import ctypes
 import shutil
 
 import numpy as np
@@ -26,75 +25,29 @@ from smc_tpu.models import as_dsge as jas
 from smc_tpu.models import sw_dsge as jsw
 from smc_tpu.models.dsge import (bl_solve_linear_re as jax_solve,
                                  bl_kalman_loglike_chandrasekhar as jax_chand)
+from smc_tpu.ops.linalg import bl_psd_fast_solve as jax_psd_solve
 from smc_tpu.params import ParamSpace as JParamSpace
 
-from smc_tpu_torch import _build
 from smc_tpu_torch.models import as_dsge as tas
 from smc_tpu_torch.models import sw_dsge as tsw
 from smc_tpu_torch.models.dsge import (bl_dsge_loglike, bl_solve_linear_re,
                                        bl_kalman_loglike_chandrasekhar,
                                        likelihood_route)
 from smc_tpu_torch.ops import cuda_dsge_general
+from smc_tpu_torch.ops.linalg import bl_psd_fast_solve
 
 from test_torch_cuda import assert_sw_loglh_close
-from torch_parity import (as_prior_draws, assert_loglh_close, normwise_rel,
-                          synthetic_system)
+from torch_parity import (GeneralHostBuild, as_prior_draws,
+                          assert_loglh_close, normwise_rel, synthetic_system)
 
 XM_RTOL = 1e-10     # X and M, normwise per particle
-
-
-class _Body:
-    """The host build of the block bodies, loaded once."""
-
-    def __init__(self):
-        lib = ctypes.CDLL(str(_build.build_general_cpu_library()))
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.smc_general_re_cpu.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
-                                           ctypes.c_double]
-        lib.smc_general_re_cpu.restype = I
-        lib.smc_general_kalman_cpu.argtypes = [I, I, I, P, P, P, P, P, P, P,
-                                               I, P, L, I, P]
-        lib.smc_general_kalman_cpu.restype = I
-        lib.smc_general_re_smem_cpu.argtypes = [I, I]
-        lib.smc_general_re_smem_cpu.restype = L
-        lib.smc_general_kalman_smem_cpu.argtypes = [I, I, I, I]
-        lib.smc_general_kalman_smem_cpu.restype = L
-        lib.smc_general_gj_cpu.argtypes = [I, I, P, P]
-        lib.smc_general_gj_cpu.restype = I
-        self.lib = lib
-
-    def re(self, A, B, C, D):
-        n_s, n_k, n = A.shape[0], D.shape[1], A.shape[-1]
-        X = torch.empty((n_s, n_s, n), dtype=torch.float64)
-        M = torch.empty((n_s, n_k, n), dtype=torch.float64)
-        ok = torch.empty(n, dtype=torch.bool)
-        rc = self.lib.smc_general_re_cpu(
-            n_s, n_k, A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
-            X.data_ptr(), M.data_ptr(), ok.data_ptr(), n, 16, 1e-8)
-        assert rc == 0
-        return X, M, ok
-
-    def kalman(self, X, M, Q, Z, d, H, data, ok):
-        n = X.shape[-1]
-        out = torch.empty(n, dtype=torch.float64)
-        rc = self.lib.smc_general_kalman_cpu(
-            X.shape[0], M.shape[1], Z.shape[0], X.data_ptr(), M.data_ptr(),
-            Q.data_ptr(), Z.data_ptr(), d.data_ptr(), H.data_ptr(),
-            data.data_ptr(), data.shape[1], ok.data_ptr(), n, 30,
-            out.data_ptr())
-        assert rc == 0
-        return out
-
-    def loglike(self, A, B, C, D, Q, Z, d, H, data):
-        X, M, ok = self.re(A, B, C, D)
-        return X, M, ok, self.kalman(X, M, Q, Z, d, H, data, ok)
 
 
 @pytest.fixture(scope="module")
 def body():
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the host version of the block bodies")
-    return _Body()
+    return GeneralHostBuild()
 
 
 def _t(*xs):
@@ -174,12 +127,15 @@ def test_as2obs_likelihood_matches_jax(body):
     assert int(torch.isfinite(ll).sum()) > 48
 
 
-@pytest.mark.parametrize("n_o", [1, 2, 3, 7])
-@pytest.mark.parametrize("n_s", [1, 6, 9, 37])
+@pytest.mark.parametrize("n_o", [1, 2, 3, 5, 7, 16])
+@pytest.mark.parametrize("n_s", [1, 6, 9, 17, 37])
 def test_synthetic_shapes_match_plain(body, n_s, n_o):
     """Both innovation solves (the cofactor form at n_obs 3, Cholesky
-    otherwise), both block sizes (n_state <= 16 and beyond)."""
-    n = 6 if n_s == 37 else 24
+    otherwise, up to the largest n_obs), both block sizes (n_state <= 16:
+    one product warp; beyond: seven). At n_obs 1, 5 and 16 (each width of
+    the innovation warp's rows) and n_state 9 and 37 (each block size)
+    also against the JAX package's filter on the same RE solution."""
+    n = 6 if n_s >= 17 else 24
     sys_np, data_np = synthetic_system(n_s, 3, n, n_t=30, n_o=n_o)
     A, B, C, D, Q, Z, d, H = _t(*sys_np)
     data = torch.as_tensor(data_np)
@@ -190,6 +146,10 @@ def test_synthetic_shapes_match_plain(body, n_s, n_o):
     assert normwise_rel(M, Mp).max() <= XM_RTOL
     want = bl_kalman_loglike_chandrasekhar(Xp, Mp, Q, Z, d, H, data)
     assert_loglh_close(ll.numpy(), want.numpy())
+    if n_o in (1, 5, 16) and n_s in (9, 37):
+        j = lambda t: jnp.asarray(t.numpy())
+        want_jax = jax.jit(jax_chand)(*map(j, (Xp, Mp, Q, Z, d, H, data)))
+        assert_loglh_close(ll.numpy(), np.asarray(want_jax))
 
 
 @pytest.mark.parametrize("n", [1, 3, 257])
@@ -208,13 +168,15 @@ def test_ragged_n_matches_plain(body, n):
         assert not torch.isfinite(ll).any()
 
 
-@pytest.mark.parametrize("n_o", [2, 3, 7])
-def test_nan_and_non_pd_particles_are_isolated(body, n_o):
+@pytest.mark.parametrize("n_s,n_o", [
+    pytest.param(n_s, n_o, id=str(n_o) if n_s == 5 else f"{n_s}-{n_o}")
+    for n_s in (5, 20) for n_o in (1, 2, 3, 7, 16)])
+def test_nan_and_non_pd_particles_are_isolated(body, n_s, n_o):
     """A NaN particle (RE solve) and a particle whose innovation covariance
     is negative definite (H = -10 I: the Cholesky factorization fails, or
     at n_obs 3 det F < 0) give -inf; their neighbours are bitwise those of
-    the run without them."""
-    sys_np, data_np = synthetic_system(5, 2, 12, n_t=20, n_o=n_o)
+    the run without them. Both block sizes."""
+    sys_np, data_np = synthetic_system(n_s, 2, 12, n_t=20, n_o=n_o)
     A, B, C, D, Q, Z, d, H = _t(*sys_np)
     data = torch.as_tensor(data_np)
     *_, ll = body.loglike(A, B, C, D, Q, Z, d, H, data)
@@ -231,6 +193,56 @@ def test_nan_and_non_pd_particles_are_isolated(body, n_o):
     assert bool(torch.isfinite(ll[keep]).all())
     want = bl_dsge_loglike(A2, B, C, D, Q, Z, d, H2, data)
     assert want[j_nan].item() == want[j_pd].item() == float("-inf")
+
+
+@pytest.mark.parametrize("n_s,n_o", [(5, 2), (5, 3), (20, 7), (20, 16)])
+def test_no_observations_give_zero(body, n_s, n_o):
+    """With no observations (n_t = 0) the filter adds no term: 0 for every
+    particle whose RE solve succeeded, as the plain version gives, with
+    nothing read from the empty observations. Both block sizes, both
+    innovation solves."""
+    sys_np, _ = synthetic_system(n_s, 2, 5, n_t=1, n_o=n_o)
+    A, B, C, D, Q, Z, d, H = _t(*sys_np)
+    data = torch.zeros((n_o, 0), dtype=torch.float64)
+    X, M, ok, ll = body.loglike(A, B, C, D, Q, Z, d, H, data)
+    assert bool(ok.all())
+    assert torch.equal(ll, torch.zeros(5, dtype=torch.float64))
+    assert torch.equal(bl_dsge_loglike(A, B, C, D, Q, Z, d, H, data), ll)
+
+
+@pytest.mark.parametrize("n_o", range(1, 17))
+def test_innovation_solve_matches_plain(body, n_o):
+    """The innovation warp's factor and solves (Cholesky across the lanes by
+    shuffles; the cofactor form at n_obs 3) against bl_psd_fast_solve, the
+    port's and the JAX package's, with the filter's n_obs + 1 right-hand
+    sides. A particle whose F is negative definite gets a NaN log det (the
+    filter's -inf; the Cholesky solves are NaN too) and leaves its
+    neighbours' bits unchanged."""
+    rng = np.random.default_rng(n_o)
+    n, j_neg = 9, 4
+    A = rng.standard_normal((n, n_o, n_o))
+    F = A @ A.transpose(0, 2, 1) + n_o * np.eye(n_o)
+    B = rng.standard_normal((n, n_o, n_o + 1))
+    X, logdet = body.psd(F, B)
+    bl = lambda x: torch.as_tensor(np.ascontiguousarray(np.moveaxis(x, 0, -1)))
+    Xp, ldp = bl_psd_fast_solve(bl(F), bl(B))
+    assert normwise_rel(bl(X), Xp).max().item() <= 1e-12
+    np.testing.assert_allclose(logdet, ldp.numpy(), rtol=1e-13, atol=1e-13)
+    Xj, ldj = jax.jit(jax_psd_solve)(*(jnp.asarray(bl(x).numpy())
+                                       for x in (F, B)))
+    assert normwise_rel(bl(X), torch.as_tensor(np.array(Xj))).max().item() \
+        <= 1e-12
+    np.testing.assert_allclose(logdet, np.asarray(ldj), rtol=1e-13,
+                               atol=1e-13)
+    F2 = F.copy()
+    F2[j_neg] = -F2[j_neg]
+    X2, ld2 = body.psd(F2, B)
+    keep = np.arange(n) != j_neg
+    assert np.array_equal(X2[keep], X[keep])
+    assert np.array_equal(ld2[keep], logdet[keep])
+    assert np.isnan(ld2[j_neg])
+    assert np.isnan(X2[j_neg]).all() == (n_o != 3)
+    assert np.isnan(bl_psd_fast_solve(bl(F2), bl(B))[1][j_neg].item())
 
 
 def _gj_serial(W, n):

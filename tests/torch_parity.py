@@ -158,3 +158,72 @@ def normwise_rel(a, b):
     num = (a - b).abs().amax(dim=(0, 1))
     den = b.abs().amax(dim=(0, 1)).clamp(min=1e-300)
     return num / den
+
+
+class GeneralHostBuild:
+    """The host build of the general-shape kernels' block bodies
+    (csrc/dsge_general_cpu.cpp through g++), loaded once: the card's
+    arithmetic on CPU tensors. Builds on first use (needs g++)."""
+
+    def __init__(self):
+        import ctypes
+        from smc_tpu_torch import _build
+        lib = ctypes.CDLL(str(_build.build_general_cpu_library()))
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.smc_general_re_cpu.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
+                                           ctypes.c_double]
+        lib.smc_general_re_cpu.restype = I
+        lib.smc_general_kalman_cpu.argtypes = [I, I, I, P, P, P, P, P, P, P,
+                                               I, P, L, I, P]
+        lib.smc_general_kalman_cpu.restype = I
+        lib.smc_general_re_smem_cpu.argtypes = [I, I]
+        lib.smc_general_re_smem_cpu.restype = L
+        lib.smc_general_kalman_smem_cpu.argtypes = [I, I, I, I]
+        lib.smc_general_kalman_smem_cpu.restype = L
+        lib.smc_general_gj_cpu.argtypes = [I, I, P, P]
+        lib.smc_general_gj_cpu.restype = I
+        lib.smc_general_psd_cpu.argtypes = [I, I, P, P, P, P, L]
+        lib.smc_general_psd_cpu.restype = I
+        self.lib = lib
+
+    def re(self, A, B, C, D):
+        import torch
+        n_s, n_k, n = A.shape[0], D.shape[1], A.shape[-1]
+        X = torch.empty((n_s, n_s, n), dtype=torch.float64)
+        M = torch.empty((n_s, n_k, n), dtype=torch.float64)
+        ok = torch.empty(n, dtype=torch.bool)
+        rc = self.lib.smc_general_re_cpu(
+            n_s, n_k, A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+            X.data_ptr(), M.data_ptr(), ok.data_ptr(), n, 16, 1e-8)
+        assert rc == 0
+        return X, M, ok
+
+    def kalman(self, X, M, Q, Z, d, H, data, ok):
+        import torch
+        n = X.shape[-1]
+        out = torch.empty(n, dtype=torch.float64)
+        rc = self.lib.smc_general_kalman_cpu(
+            X.shape[0], M.shape[1], Z.shape[0], X.data_ptr(), M.data_ptr(),
+            Q.data_ptr(), Z.data_ptr(), d.data_ptr(), H.data_ptr(),
+            data.data_ptr(), data.shape[1], ok.data_ptr(), n, 30,
+            out.data_ptr())
+        assert rc == 0
+        return out
+
+    def loglike(self, A, B, C, D, Q, Z, d, H, data):
+        X, M, ok = self.re(A, B, C, D)
+        return X, M, ok, self.kalman(X, M, Q, Z, d, H, data, ok)
+
+    def psd(self, F, B):
+        """The innovation warp's factor and solve: F [N, o, o], B [N, o, m]
+        float64 numpy arrays -> (F^-1 B [N, o, m], log det F [N]), NaN
+        where the factorization failed."""
+        F = np.ascontiguousarray(F, dtype=np.float64)
+        B = np.ascontiguousarray(B, dtype=np.float64)
+        n, o, m = B.shape
+        X = np.empty_like(B)
+        logdet = np.empty(n)
+        assert self.lib.smc_general_psd_cpu(
+            o, m, F.ctypes.data, B.ctypes.data, X.ctypes.data,
+            logdet.ctypes.data, n) == 0
+        return X, logdet
