@@ -24,7 +24,14 @@ smc_tpu_torch.smc on the card, then the rest of smc()'s paths:
       Jacobi eigh kernel against torch.linalg.eigh at the mutation's block
       shapes;
   (k) the example scripts of examples/torch/ at their own configurations,
-      each log-MDD gated against the JAX script's.
+      each log-MDD gated against the JAX script's;
+  (l) Smets-Wouters with FRBNY m1002's inflation target and forward
+      guidance (models/sw_pi_fg.py: 44 states, 14 observables) at (f)'s
+      configuration, through the general kernels with the expectation-rows
+      kernel between them: that kernel against its plain version, the
+      whole likelihood against the plain route, and the Kalman kernel on
+      rows of 16 timed on the model's prior and posterior draws and on
+      synthetic draws.
 
 Before the main path, the shape phase holds both DSGE kernels at every
 (n_state, n_shock) of their domain (1..8 each, n_obs 3) against their plain
@@ -36,7 +43,7 @@ AS-2obs's shapes and at synthetic shapes with 1, 2, 3 and 7 observables,
 and times one SW likelihood call at 12,000 draws; their launches in the
 kernels line are phase (f)'s.
 
-The main path and phases (a)-(c), (e)-(h) and the NCCL mesh run the fused
+The main path and phases (a)-(c), (e)-(h), (l) and the NCCL mesh run the fused
 recursion, smc()'s automatic choice at verbose="none": each stage a replay
 of one captured CUDA graph (under the mesh with its collectives). The gloo
 mesh on the card runs the host loop, by the same choice; (d) checkpoints,
@@ -141,8 +148,9 @@ def ptxas_lines(log: str):
         if m:
             k = re.search(r"(re_kernel|kalman_kernel)ILi(\d+)ELi(\d+)E",
                           m.group(1))
-            gen = re.search(r"(re_general_kernel|kalman_general_kernel)"
-                            r"ILi(\d+)E(?:Li(\d+)E)?", m.group(1))
+            gen = re.search(r"(re_general_kernel|kalman_general_kernel|"
+                            r"expectation_rows_kernel)ILi(\d+)E(?:Li(\d+)E)?",
+                            m.group(1))
             name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else
                     f"{gen.group(1)}<{gen.group(2)}>" if gen and
                     gen.group(3) is None else
@@ -1107,10 +1115,12 @@ def _eigh_launch_gate(name, n_stages, n_blocks):
 
 
 def _reset_launches():
-    from smc_tpu_torch.ops import (cuda_dsge, cuda_dsge_general, cuda_eigh,
+    from smc_tpu_torch.ops import (cuda_dsge, cuda_dsge_expectations,
+                                   cuda_dsge_general, cuda_eigh,
                                    cuda_metropolis)
     for counts in (cuda_dsge.LAUNCHES, cuda_dsge_general.LAUNCHES,
-                   cuda_eigh.LAUNCHES, cuda_metropolis.LAUNCHES):
+                   cuda_dsge_expectations.LAUNCHES, cuda_eigh.LAUNCHES,
+                   cuda_metropolis.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -1592,14 +1602,16 @@ def sw_runner(dev):
         **dict(SW_CONFIG, **kw), device=dev)
 
 
-def sw_gates(name, res):
-    """The JAX package's tests/test_sw_estimation.py gates on an SW run: a
-    sound schedule, finite likelihoods and log-MDD, max |z| of the posterior
+def sw_gates(name, res, mod=None):
+    """The JAX package's tests/test_sw_estimation.py gates on an SW run (of
+    the model module `mod`, sw_dsge unless told otherwise): a sound
+    schedule, finite likelihoods and log-MDD, max |z| of the posterior
     means against TRUE_PARAMS below 6, over 85% of them below 3, and crhoa
     and crhog within 0.1."""
     import numpy as np
     import torch
     from smc_tpu_torch.models import sw_dsge
+    sw_dsge = mod or sw_dsge
     sched = np.asarray(res.cloud.tempering_schedule)
     mu, sd = res.posterior_mean(), res.posterior_std()
     z = np.abs(mu - sw_dsge.TRUE_PARAMS) / np.maximum(sd, 1e-8)
@@ -1657,6 +1669,285 @@ def sw_phase(dev):
                 f"{SW_CMP_POSTERIOR} posterior particles)", model, th, data,
                 SW_TAIL_RTOL)
     return launches
+
+
+# (l) Smets-Wouters with FRBNY m1002's inflation target and forward
+# guidance (models/sw_pi_fg.py) at SW's configuration, as the benchmark's
+# swpifg-4k-fixed runs it; the expectation-rows kernel against its plain
+# version normwise per particle (f64 rounding over a chain of 40
+# vector-matrix products)
+EXPECT_RTOL = 1e-12
+# (l)'s deep tail: far in the prior's tail the recursion drifts in every
+# method. On (l)'s 4,101 draws on the CPU, the plain route, the plain
+# reference (tests/reference_sw_pi_fg.py) and the Riccati filter, three
+# exact float64 computations, differ by over 1e-3 on 14-17 lanes (by up to
+# 34%) and each leaves the other two's range, widened by SW's tail band, on
+# 8-10; so no lane-by-lane tail band holds there. (l) holds the card to the
+# plain route within the posterior band lane by lane, and in the tail to
+# the drift of an exact method: at each of TAIL_LEVELS it leaves the
+# reference on at most DRIFT_FACTOR times as many lanes as the plain route
+# does, plus DRIFT_SLACK, and in finiteness likewise.
+TAIL_LEVELS = (1e-3, 1e-4, 1e-5)
+DRIFT_FACTOR, DRIFT_SLACK = 2, 2
+
+
+def expectation_flops(n_s, rows):
+    """flop of one ok particle's expectation rows (csrc/dsge_expectations
+    .cuh): each base row's chain v <- v X to the last horizon of its rows,
+    2 n_s^2 a step (vector-matrix products, on the FMA pipes), an addition
+    per entry a horizon a row holds and a division per entry a row."""
+    last = {}
+    for _, base, _, hi in rows:
+        last[base] = max(last.get(base, 0), hi)
+    return _f(other=(2 * n_s * n_s * sum(last.values())
+                     + n_s * sum(hi - lo + 1 for _, _, lo, hi in rows)
+                     + n_s * len(rows)))
+
+
+def expectation_bytes(n_s, n_o, n_rows, n, n_ok):
+    """Bytes the kernel has to move: X and the rows of Z it does not fill
+    of each ok particle, Z whole of the others, ok, and Z written whole."""
+    return (8 * n_ok * (n_s * n_s + (n_o - n_rows) * n_s)
+            + 8 * (n - n_ok) * n_o * n_s + n * (1 + 8 * n_o * n_s))
+
+
+def sw_pi_fg_runner(dev):
+    import smc_tpu_torch
+    from smc_tpu_torch.models import sw_pi_fg as fg
+    model, data = fg.sw_pi_fg(), fg.load_sw_pi_fg_data()
+    return model, data, lambda **kw: smc_tpu_torch.smc(
+        model.loglike_batched, fg.sw_pi_fg_parameters(), data,
+        **dict(SW_CONFIG, **kw), device=dev)
+
+
+def sw_pi_fg_kalman_inputs(dev, th, data):
+    """(X, M, Q, Z, d, H, data, ok) of the model's Kalman filter at thetas
+    th [N, 43] on the card: the RE kernel's solution, Z with its
+    expectation rows from the kernel."""
+    import torch
+    from smc_tpu_torch.models import sw_pi_fg as fg
+    from smc_tpu_torch.ops import cuda_dsge_expectations as ce
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    X, M, ok = g.solve_linear_re(*fg._system(th))
+    d, Z, H = fg._measurement(th)
+    Z = ce.expectation_rows(Z, X, ok, fg.EXPECTATION_ROWS)
+    y = torch.as_tensor(data, device=dev).contiguous()
+    return X, M, fg._shock_cov(th), Z, d, H, y, ok
+
+
+def kalman_sets(dev, posterior):
+    """The general Kalman kernel's inputs on rows of 16 (n_obs 9-16) the
+    way they differ: the general phase's synthetic draws (tests/
+    torch_parity.py synthetic_system, SYNTHETIC_T = 80 steps) at (37, 7,
+    16) and at the model's (44, 14, 14); the model's SW_N_PARTS prior draws
+    on the first 80 quarters and on all 156; its posterior cloud
+    `posterior` [N, 43] on all 156. name -> (X, M, Q, Z, d, H, data, ok)."""
+    import torch
+    from torch_parity import synthetic_system
+    from smc_tpu_torch.models import sw_pi_fg as fg
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    sets = {}
+    for n_s, n_k, n_o in ((37, 7, 16), (44, 14, 14)):
+        sys_np, data_np = synthetic_system(n_s, n_k, SW_N_PARTS, n_o=n_o)
+        A, B, C, D, Q, Z, d, H = (torch.as_tensor(x, device=dev)
+                                  for x in sys_np)
+        X, M, ok = g.solve_linear_re(A, B, C, D)
+        sets[f"synthetic ({n_s}, {n_k}, {n_o}), T {data_np.shape[1]}"] = (
+            X, M, Q, Z, d, H, torch.as_tensor(data_np, device=dev), ok)
+    data = fg.load_sw_pi_fg_data()
+    prior = prior_draws(fg.sw_pi_fg_parameters(), SW_N_PARTS).to(dev)
+    sets["prior draws, T 80"] = sw_pi_fg_kalman_inputs(dev, prior,
+                                                       data[:, :80])
+    sets[f"prior draws, T {data.shape[1]}"] = sw_pi_fg_kalman_inputs(
+        dev, prior, data)
+    sets[f"posterior cloud, T {data.shape[1]}"] = sw_pi_fg_kalman_inputs(
+        dev, posterior, data)
+    return sets
+
+
+def kalman_turns(sets, reps=3):
+    """Each set's Kalman kernel call timed in turns, the sets forward then
+    backward (cuda_ms, `reps` calls a batch, 3 batches): name -> the mean
+    of its two times (ms)."""
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    times = {name: [] for name in sets}
+    order = list(sets)
+    for name in order + order[::-1]:
+        X, M, Q, Z, d, H, y, ok = sets[name]
+        times[name].append(cuda_ms(lambda: g.kalman_chandrasekhar(
+            X, M, Q, Z, d, H, y, ok=ok), reps, 3))
+    return {name: sum(t) / len(t) for name, t in times.items()}
+
+
+def kalman_work_line(name, inputs, ms):
+    """One set's line: ok draws, filter steps and the share of ok draws the
+    divergence guards cut short, doubling steps, the kernel's time and its
+    share of the bound of its own work (kalman_general_flops); returns the
+    ms per ok particle-step."""
+    X, M, Q, Z, d, H, y, ok = inputs
+    sub = lambda t: t[..., ok].contiguous()
+    steps = chandrasekhar_steps(sub(X), sub(M), sub(Q), sub(Z), sub(d),
+                                sub(H), y)
+    ly_it = lyapunov_iterations(sub(X))
+    n_s, n_k, n_o, n_t = X.shape[0], M.shape[1], Z.shape[0], y.shape[1]
+    flop = _add(_f(), *(kalman_general_flops(n_s, n_k, int(i), int(st), n_o)
+                        for i, st in zip(ly_it.tolist(), steps.tolist())))
+    n = X.shape[-1]
+    nbytes = (n * (8 * (n_s * n_s + n_s * n_k + n_k * n_k + n_o * n_s + n_o
+                        + n_o * n_o) + 1 + 8) + 8 * y.numel())
+    bound, by = bound_ms(flop, nbytes)
+    total = int(steps.sum())
+    cut = (steps < n_t).double().mean().item() if steps.numel() else 0.0
+    per_step = ms / max(total, 1)
+    print(f"# (l) kalman {name}: {int(ok.sum())}/{n} ok, filter steps "
+          f"{steps.double().mean().item():.4f} of {n_t} on average, "
+          f"{100 * cut:.2f}% of ok draws cut short by the guards, doubling "
+          f"{ly_it.double().mean().item():.4f}; kernel {ms:.4f} ms "
+          f"({1e6 * per_step:.4f} ns an ok particle-step), bound "
+          f"{bound:.4f} ms ({by}), {100 * bound / ms:.2f}% of it")
+    return per_step
+
+
+def sw_pi_fg_phase(dev, ptxas):
+    """(l) sw_pi_fg-4k: Smets-Wouters with FRBNY m1002's inflation target
+    and forward guidance (44 states, 14 shocks, 14 observables) at SW's
+    configuration through the general route (the RE kernel, the
+    expectation-rows kernel, the Kalman kernel on rows of 16; one launch of
+    each per likelihood call, counted from zero), gated as (f); then, at
+    SW_N_PARTS prior draws, 4 near-mode draws and one without a unique
+    stable solution, the expectation-rows
+    kernel against bl_expectation_rows on the same X, Z and ok (within
+    EXPECT_RTOL, the rejected draws' rows untouched; its time, plain time
+    and bound), the whole likelihood against the plain route on the card
+    (bl_dsge_loglike: within the posterior band lane by lane; in the tail,
+    against the plain reference, no more drift than the plain route's),
+    and the Kalman kernel timed in turns on
+    the model's prior and posterior draws and on synthetic draws
+    (kalman_sets). Returns the kernels-line entry of the expectation-rows
+    kernel."""
+    import numpy as np
+    import torch
+    import reference_sw_pi_fg
+    from torch_parity import BAND_RTOL
+    from smc_tpu_torch.models import sw_pi_fg as fg
+    from smc_tpu_torch.models.dsge import (bl_dsge_loglike,
+                                           bl_expectation_rows,
+                                           bl_solve_linear_re)
+    from smc_tpu_torch.ops import cuda_dsge_expectations as ce
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    rows = fg.EXPECTATION_ROWS
+    model, data, run = sw_pi_fg_runner(dev)
+    _, wall = _timed(lambda: run(n_phi=3, seed=1))
+    print(f"# (l) warm-up (2 stages) {wall:.4f} s")
+    _reset_launches()
+    res, wall = _timed(lambda: run(seed=0))
+    launches = dict(g.LAUNCHES, **ce.LAUNCHES)
+    sched = np.asarray(res.cloud.tempering_schedule)
+    sw_gates(f"(l) sw_pi_fg-{SW_N_PARTS}", res, fg)
+    expected = (1 + res.init_rounds + (len(sched) - 1 + res.masked_stages)
+                * SW_CONFIG["n_blocks"])
+    print(f"# (l) kernel launches {launches} (expected {expected} each: 1 + "
+          f"{res.init_rounds} redraw rounds + {SW_CONFIG['n_blocks']} a "
+          f"stage); graph capture {res.capture_seconds:.4f} s")
+    if set(launches) != {"re_general", "kalman_general", "expectation_rows"} \
+            or any(v != expected for v in launches.values()):
+        raise RuntimeError("(l) sw_pi_fg did not go through the general "
+                           "route once per likelihood call")
+    if not res.fused:
+        raise RuntimeError("(l) sw_pi_fg did not run the fused recursion")
+    _run_line("(l) sw_pi_fg", res, wall, SW_N_PARTS)
+    _eigh_launch_gate("(l) sw_pi_fg", len(sched) - 1, SW_CONFIG["n_blocks"])
+
+    near = fg.TRUE_PARAMS * (1.0 + 1e-4 * np.random.default_rng(1)
+                             .standard_normal((5, fg.TRUE_PARAMS.size)))
+    near[-1, fg.PARAM_NAMES.index("crpi")] = 0.5   # no unique stable solution
+    th = torch.cat([prior_draws(fg.sw_pi_fg_parameters(), SW_N_PARTS),
+                    torch.as_tensor(near)]).to(dev)
+    y = torch.as_tensor(data, device=dev).contiguous()
+    A, B, C, D = fg._system(th)
+    d, Z, H = fg._measurement(th)
+    Q = fg._shock_cov(th)
+    X, M, ok = g.solve_linear_re(A, B, C, D)
+    before = ce.LAUNCHES["expectation_rows"]
+    out = ce.expectation_rows(Z, X, ok, rows)
+    if ce.LAUNCHES["expectation_rows"] != before + 1:
+        raise RuntimeError("(l) the expectation rows were not one launch")
+    plain = bl_expectation_rows(Z, X, rows, ok)
+    torch.cuda.synchronize()
+    err = (torch.linalg.vector_norm(out - plain, dim=(0, 1))
+           / torch.linalg.vector_norm(plain, dim=(0, 1)))[ok].max().item()
+    abs_err = (out - plain).abs().max().item()
+    kept = torch.equal(out[..., ~ok], Z[..., ~ok])
+    n_ok, (n_o, n_s, n) = int(ok.sum()), Z.shape
+    flop = _mul(n_ok, expectation_flops(n_s, rows))
+    nbytes = expectation_bytes(n_s, n_o, len(rows), n, n_ok)
+    bound, by = bound_ms(flop, nbytes)
+    call = lambda: ce.expectation_rows(Z, X, ok, rows)
+    ms, in_graph = cuda_ms(call, 20), graph_ms(call, 20)
+    plain_ms = cuda_ms(lambda: bl_expectation_rows(Z, X, rows, ok), 5, 3)
+    print(f"# (l) expectation rows at N={n} ({n_ok} ok): normwise rel err "
+          f"{err:.3e} (gate {EXPECT_RTOL:g}), max abs err {abs_err:.3e}, "
+          f"rejected draws' rows untouched: {kept}; kernel {ms:.4f} ms "
+          f"({in_graph:.4f} ms replayed from a CUDA graph), plain "
+          f"{plain_ms:.4f} ms, bound {bound:.6f} ms ({by}; "
+          f"{_flop_str(flop)}, {nbytes} B), {100 * bound / in_graph:.2f}% "
+          f"of it; expectation_rows_kernel<64> "
+          f"{ptxas.get('expectation_rows_kernel<64>')}")
+    if not (err <= EXPECT_RTOL and kept and 0 < n_ok < n):
+        raise RuntimeError("(l) the expectation-rows kernel disagrees with "
+                           "its plain version")
+
+    before = dict(g.LAUNCHES, **ce.LAUNCHES)
+    got = model.loglike_batched(th, data)
+    counted = {k: v - before[k] for k, v in dict(g.LAUNCHES,
+                                                 **ce.LAUNCHES).items()}
+    want = bl_dsge_loglike(A, B, C, D, Q, Z, d, H, y, expectation_rows=rows)
+    okp = bl_solve_linear_re(A, B, C, D)[2]
+    agree = (ok == okp).double().mean().item()
+    exact = reference_sw_pi_fg.loglike(th, y)
+    pattern, n_band, band_rel, _, _ = loglh_errors(got, want, ok == okp)
+
+    def drift(a):
+        """Lanes on which a leaves the reference: in finiteness, then by
+        more than each of TAIL_LEVELS (relative)."""
+        both = torch.isfinite(a) & torch.isfinite(exact)
+        rel = ((a - exact).abs() / exact.abs())[both]
+        return [int((torch.isfinite(a) != torch.isfinite(exact)).sum())] + [
+            int((rel > t).sum()) for t in TAIL_LEVELS]
+    card_drift, plain_drift = drift(got), drift(want)
+    drift_ok = all(c <= DRIFT_FACTOR * p + DRIFT_SLACK
+                   for c, p in zip(card_drift, plain_drift))
+    call_ms = cuda_ms(lambda: model.loglike_batched(th, data), 3, 3)
+    plain_call = once_ms(lambda: bl_dsge_loglike(
+        A, B, C, D, Q, Z, d, H, y, expectation_rows=rows))
+    print(f"# (l) likelihood at N={n}, general route against the plain "
+          f"route on the card: launches {counted}; RE ok agreement "
+          f"{agree:.6f}; {band_rel:.3e} over {n_band} band lanes (gate "
+          f"{BAND_RTOL:g}); lanes off the plain reference in finiteness and "
+          f"by over {TAIL_LEVELS}: the card {card_drift}, the plain route "
+          f"{plain_drift} (gate {DRIFT_FACTOR}x + {DRIFT_SLACK}); "
+          f"finite-pattern disagreements with the plain route "
+          f"{pattern}; call {call_ms:.4f} ms, plain {plain_call:.4f} ms; "
+          f"re_general_kernel<256> {ptxas.get('re_general_kernel<256>')}; "
+          f"kalman_general_kernel<256,16> "
+          f"{ptxas.get('kalman_general_kernel<256,16>')}")
+    if counted != {"re_general": 1, "kalman_general": 1,
+                   "expectation_rows": 1}:
+        raise RuntimeError(f"(l) the likelihood call launched {counted}")
+    if not (agree >= OK_AGREE_MIN and n_band >= 2
+            and band_rel <= BAND_RTOL and drift_ok):
+        raise RuntimeError("(l) the general route disagrees with the plain "
+                           "route")
+
+    sets = kalman_sets(dev, res.cloud.params)
+    times = kalman_turns(sets)
+    for name, inputs in sets.items():
+        kalman_work_line(name, inputs, times[name])
+    return dict(name="expectation_rows", route="cuda",
+                source="smc_tpu_torch/csrc/dsge_expectations.cu",
+                replaces=None, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                launches=launches["expectation_rows"])
 
 
 def as2obs_phase(dev):
@@ -2484,6 +2775,7 @@ def main(argv=None) -> int:
     checkpoint_phase(dev, lin, res_a)
     tempered_phase(dev, lin)
     sw_launches = sw_phase(dev)
+    expectations = sw_pi_fg_phase(dev, ptxas)
     res_g, wall_g = as2obs_phase(dev)
     capm_phase(dev)
     mesh_phase(dev, res_as, wall_as)
@@ -2500,6 +2792,7 @@ def main(argv=None) -> int:
     for k, key in zip(general, ("re_general", "kalman_general")):
         k["launches"] = sw_launches[key]
     kernels.extend(general)
+    kernels.append(expectations)
     kernels.extend(shapes)
     print(f"# all phases {time.perf_counter() - t_start:.1f} s (build "
           "included)")

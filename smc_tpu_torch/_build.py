@@ -3,8 +3,10 @@
 Each CUDA source is compiled by nvcc for sm_90a (Hopper) into a plain-C
 shared library that its wrapper loads with ctypes: dsge_kernels.cu for
 ops/cuda_dsge.py, once per n_state of the domain (library "dsge_ns<n>",
-with every n_shock: `DSGE_MAX_DIM`, csrc/dsge_sizes.cuh), eigh_kernel.cu
-for ops/cuda_eigh.py, metropolis_kernel.cu for ops/cuda_metropolis.py. No
+with every n_shock: `DSGE_MAX_DIM`, csrc/dsge_sizes.cuh),
+dsge_general_kernels.cu for ops/cuda_dsge_general.py, dsge_expectations.cu
+for ops/cuda_dsge_expectations.py, eigh_kernel.cu for ops/cuda_eigh.py,
+metropolis_kernel.cu for ops/cuda_metropolis.py. No
 PyTorch headers are involved; `build_cuda_libraries` runs one nvcc per
 library, all at once. A
 wrapper builds the library it needs at its first use, into
@@ -17,7 +19,9 @@ library as <library>.log.
 `build_cpu_library(n_state, n_shock)` compiles csrc/dsge_cpu.cpp (the
 per-particle bodies as plain host loops) for one shape,
 `build_general_cpu_library` csrc/dsge_general_cpu.cpp (the general-shape
-block bodies, particle by particle), `build_eigh_cpu_library`
+block bodies, particle by particle), `build_expectations_cpu_library`
+csrc/dsge_expectations_cpu.cpp (the expectation rows' block body),
+`build_eigh_cpu_library`
 csrc/eigh_cpu.cpp (the Jacobi body, block by block) and
 `build_metropolis_cpu_library` csrc/metropolis_cpu.cpp (the chain, slot by
 slot) with g++. Only the tests use them.
@@ -122,6 +126,8 @@ CUDA_LIBRARIES = {
                        (*_DSGE_FLAGS, f"-DSMC_NS={k}")) for k in DSGE_STATES},
     "dsge_general": ("dsge_general_kernels.cu", "libsmc_dsge_general_cuda",
                      _GENERAL_FLAGS),
+    "dsge_expectations": ("dsge_expectations.cu",
+                          "libsmc_dsge_expectations_cuda", ()),
     "eigh": ("eigh_kernel.cu", "libsmc_eigh_cuda", _SMEM_FLAGS),
     "metropolis": ("metropolis_kernel.cu", "libsmc_metropolis_cuda", ()),
 }
@@ -165,6 +171,13 @@ def build_general_cpu_library() -> Path:
     only)."""
     return _compile(_gxx(), [*GXX_FLAGS, *_GENERAL_FLAGS],
                     CSRC / "dsge_general_cpu.cpp", "libsmc_dsge_general_cpu")
+
+
+def build_expectations_cpu_library() -> Path:
+    """Path of the host build of the expectation rows' block body (tests
+    only)."""
+    return _compile(_gxx(), GXX_FLAGS, CSRC / "dsge_expectations_cpu.cpp",
+                    "libsmc_dsge_expectations_cpu")
 
 
 def build_eigh_cpu_library() -> Path:

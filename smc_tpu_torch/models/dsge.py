@@ -9,6 +9,12 @@ likelihood is the Morf-Sidhu-Kailath Chandrasekhar recursion (or, with
 use_chand_recursion=False, the Riccati filter) started from the stationary
 covariance (Lyapunov doubling). Rejected draws give -inf.
 
+A measurement may hold expectation rows, built from the solved transition
+between the RE solve and the filter: row `obs` of Z is the mean over
+h = first..last of Z[base] X^h, the expectation E_t of observable `base`
+h periods ahead (a market expectation observed beside the data, as in
+the FRBNY DSGE model's expected policy rates and 10-year inflation).
+
 The `bl_*` functions here are the plain PyTorch versions: batch-last
 [r, c, N] tensors, fixed iteration counts. They are what a CPU tensor runs
 and what the CUDA kernels (ops/cuda_dsge.py, ops/cuda_dsge_general.py) are
@@ -25,6 +31,7 @@ import torch
 
 from smc_tpu_torch.ops.linalg import (bl_matmul, bl_transpose, bl_gj_solve,
                                       bl_psd_fast_solve, bl_psd_logdet_solve)
+from smc_tpu_torch.tracing import span
 from smc_tpu_torch.utils.misc import DeviceCopies
 
 _LOG_2PI = 1.8378770664093453
@@ -180,11 +187,59 @@ def bl_kalman_loglike_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H, data,
     return torch.where(torch.isfinite(total) & ~bad, total, float("-inf"))
 
 
+def check_expectation_rows(rows, n_obs: int = None) -> tuple:
+    """The expectation rows as a tuple of (obs, base, first, last) int
+    tuples, or ValueError: 1 <= first <= last, no observable filled twice,
+    no base that is itself filled, and, given n_obs, rows and bases below
+    it."""
+    rows = tuple(tuple(int(x) for x in r) for r in rows)
+    filled = [r[0] for r in rows]
+    if any(len(r) != 4 for r in rows) or len(set(filled)) != len(filled):
+        raise ValueError("expectation rows are distinct (obs, base, first, "
+                         f"last) rows; got {rows}")
+    for obs, base, first, last in rows:
+        if not 1 <= first <= last:
+            raise ValueError(f"expectation row {obs}: the horizons need "
+                             f"1 <= first <= last, got {first}, {last}")
+        if base in filled:
+            raise ValueError(f"expectation row {obs}: its base row {base} "
+                             "is itself an expectation row")
+        if n_obs is not None and not (0 <= obs < n_obs
+                                      and 0 <= base < n_obs):
+            raise ValueError(f"expectation row {obs} (base {base}) lies "
+                             f"outside the {n_obs} observables")
+    return rows
+
+
+def bl_expectation_rows(Z, X, rows, ok=None):
+    """Z [n_o, n_s, N] with each expectation row (obs, base, first, last)
+    of `rows` set to the mean over h = first..last of Z[base] X^h, X
+    [n_s, n_s, N]: each base row's chain v <- v X runs once, to the last
+    horizon of the rows it feeds. Where ok (bool [N]) is False the rows
+    stay as given."""
+    out = Z.clone()
+    for base in dict.fromkeys(r[1] for r in rows):
+        mine = [r for r in rows if r[1] == base]
+        acc = {r[0]: torch.zeros_like(Z[base]) for r in mine}
+        v = Z[base]
+        for h in range(1, max(r[3] for r in mine) + 1):
+            v = torch.einsum("in,ijn->jn", v, X)
+            for obs, _, first, last in mine:
+                if first <= h <= last:
+                    acc[obs] = acc[obs] + v
+        for obs, _, first, last in mine:
+            out[obs] = acc[obs] / (last - first + 1)
+    return out if ok is None else torch.where(ok, out, Z)
+
+
 def bl_dsge_loglike(A, B, C, D, Q, Z, d_obs, H, data,
-                    use_chand_recursion: bool = True):
-    """Plain composition: RE solve then the Chandrasekhar (or Riccati)
-    filter; rejected draws -> -inf."""
+                    use_chand_recursion: bool = True, expectation_rows=()):
+    """Plain composition: RE solve, the expectation rows (if any), then the
+    Chandrasekhar (or Riccati) filter; rejected draws -> -inf."""
     X, M, ok = bl_solve_linear_re(A, B, C, D)
+    if expectation_rows:
+        with span("smc.likelihood.expectations"):
+            Z = bl_expectation_rows(Z, X, expectation_rows, ok)
     kf = (bl_kalman_loglike_chandrasekhar if use_chand_recursion
           else bl_kalman_loglike)
     return torch.where(ok, kf(X, M, Q, Z, d_obs, H, data), float("-inf"))
@@ -197,7 +252,7 @@ def bl_dsge_loglike(A, B, C, D, Q, Z, d_obs, H, data,
 
 def likelihood_route(backend: str, use_chand_recursion: bool,
                      device_type: str, n_state: int, n_shock: int,
-                     n_obs: int, n_t: int) -> str:
+                     n_obs: int, n_t: int, expectations: bool = False) -> str:
     """Which likelihood LinearDSGE.loglike_batched runs, from the backend,
     the filter, the device type and the shapes alone (nothing is built):
     "kernel" (ops/cuda_dsge.py) for the "kernel" backend, and for the
@@ -205,15 +260,18 @@ def likelihood_route(backend: str, use_chand_recursion: bool,
     those kernels take (n_obs 3, n_state and n_shock <= 8: there they are
     the faster of the two, and both compute this function to rounding);
     "general" (ops/cuda_dsge_general.py) for the same at the other shapes
-    the general kernels take; "plain" (bl_dsge_loglike) otherwise: any CPU
-    tensor, the Riccati filter, shapes past both domains."""
+    the general kernels take, and for a measurement with expectation rows
+    (which the n_obs-3 kernels do not fill); "plain" (bl_dsge_loglike)
+    otherwise: any CPU tensor, the Riccati filter, shapes past both
+    domains."""
     backend = BACKENDS[backend]
     if backend == "kernel":
         return "kernel"
     if device_type != "cuda" or not use_chand_recursion:
         return "plain"
     from smc_tpu_torch.ops import cuda_dsge, cuda_dsge_general
-    if cuda_dsge.in_domain(n_state, n_shock, n_obs, n_t):
+    if not expectations and cuda_dsge.in_domain(n_state, n_shock, n_obs,
+                                                n_t):
         return "kernel"
     return ("general"
             if cuda_dsge_general.in_domain(n_state, n_shock, n_obs, n_t)
@@ -278,6 +336,14 @@ class LinearDSGE:
     an_schorfheide() does. The JAX package's names are taken too: "pallas"
     is "kernel" and "xla" is "plain".
 
+    `expectation_rows`, a tuple of (obs, base, first, last), makes row obs
+    of Z the mean over h = first..last of Z[base] X^h once X is solved
+    (measurement_fn gives d for every row and Z for the base rows; its Z
+    rows obs are not read). The step runs on every route but "kernel",
+    which refuses it with a ValueError: on the CPU bl_expectation_rows, on
+    the general route the kernel of ops/cuda_dsge_expectations.py, between
+    the RE solve and the filter; `simulate` applies it too.
+
     Estimate a DSGE model with smc(model.loglike_batched, ...,
     batched=True). `loglike` evaluates one theta; it is not written for
     torch.func.vmap, which cannot trace the in-place writes of the system
@@ -292,7 +358,8 @@ class LinearDSGE:
     def __init__(self, parameters: List, system_fn: Callable,
                  measurement_fn: Callable, n_shocks: int,
                  shock_cov_fn: Callable, use_chand_recursion: bool = True,
-                 likelihood_backend: str = "plain", mesh=None):
+                 likelihood_backend: str = "plain", mesh=None,
+                 expectation_rows=()):
         if likelihood_backend not in BACKENDS:
             raise ValueError("likelihood_backend must be one of "
                              f"{tuple(BACKENDS)}")
@@ -301,6 +368,9 @@ class LinearDSGE:
             raise ValueError("the kernels run the Chandrasekhar recursion; "
                              "the Riccati filter needs "
                              "likelihood_backend='plain'")
+        if likelihood_backend == "kernel" and len(expectation_rows):
+            raise ValueError("the n_obs-3 kernels do not fill expectation "
+                             "rows; they need likelihood_backend='plain'")
         self.parameters = parameters
         self.system_fn = system_fn
         self.measurement_fn = measurement_fn
@@ -309,6 +379,7 @@ class LinearDSGE:
         self.use_chand_recursion = use_chand_recursion
         self.likelihood_backend = likelihood_backend
         self.mesh = mesh
+        self.expectation_rows = check_expectation_rows(expectation_rows)
         self._data = DeviceCopies()     # the observations [n_o, T]
 
     def loglike_batched(self, thetas: torch.Tensor, data) -> torch.Tensor:
@@ -318,17 +389,18 @@ class LinearDSGE:
         Q = self.shock_cov_fn(thetas)
         d_obs, Z, H = self.measurement_fn(thetas)
         y = self._data.get(data, thetas.device)
+        rows = self.expectation_rows
         route = likelihood_route(self.likelihood_backend,
                                  self.use_chand_recursion, thetas.device.type,
                                  A.shape[0], D.shape[1], Z.shape[0],
-                                 y.shape[-1])
+                                 y.shape[-1], expectations=bool(rows))
         if route == "plain":
             return bl_dsge_loglike(A, B, C, D, Q, Z, d_obs, H, y,
-                                   self.use_chand_recursion)
+                                   self.use_chand_recursion, rows)
         if route == "general":
             from smc_tpu_torch.ops.cuda_dsge_general import dsge_loglike
-        else:
-            from smc_tpu_torch.ops.cuda_dsge import dsge_loglike
+            return dsge_loglike(A, B, C, D, Q, Z, d_obs, H, y, rows)
+        from smc_tpu_torch.ops.cuda_dsge import dsge_loglike
         return dsge_loglike(A, B, C, D, Q, Z, d_obs, H, y)
 
     def loglike(self, theta: torch.Tensor, data) -> torch.Tensor:
@@ -343,9 +415,11 @@ class LinearDSGE:
         th = torch.as_tensor(theta, dtype=torch.float64,
                              device=draws.device)[None]
         X, M, _ = bl_solve_linear_re(*self.system_fn(th))
-        X, M = X[..., 0], M[..., 0]
         chol_Q = torch.linalg.cholesky(self.shock_cov_fn(th)[..., 0])
         d_obs, Z, _ = self.measurement_fn(th)
+        if self.expectation_rows:
+            Z = bl_expectation_rows(Z, X, self.expectation_rows)
+        X, M = X[..., 0], M[..., 0]
         eps = draws.normal((T + burn, self.n_shocks)) @ chol_Q.T
         s = torch.zeros(X.shape[0], dtype=X.dtype, device=X.device)
         states = []

@@ -140,7 +140,6 @@ STATE_NAMES = _STICKY + _FLEX + _SHOCKS + _MA_AUX + _LAGS
 _IDX: Dict[str, int] = {n: i for i, n in enumerate(STATE_NAMES)}
 N_STATE = len(STATE_NAMES)          # 37
 SHOCK_NAMES = ["ea", "eb", "eg", "eqs", "em", "epinf", "ew"]
-_EIDX = {n: i for i, n in enumerate(SHOCK_NAMES)}
 N_SHOCK = len(SHOCK_NAMES)          # 7
 
 OBS_NAMES = ["dy", "dc", "dinve", "dw", "pinfobs", "robs", "labobs"]
@@ -154,9 +153,9 @@ def _const(values: tuple, dtype, device) -> torch.Tensor:
     return torch.tensor(values, dtype=dtype, device=device)
 
 
-def _scatter(terms, n_cols, like):
+def _scatter(terms, n_rows, n_cols, like):
     """Sum the (flat index, coefficient) terms into a batch-last
-    [N_STATE, n_cols, N] matrix: coefficients are [N] tensors or floats."""
+    [n_rows, n_cols, N] matrix: coefficients are [N] tensors or floats."""
     t_idx = [i for i, c in terms if torch.is_tensor(c)]
     f_idx = [i for i, c in terms if not torch.is_tensor(c)]
     n = like.shape[0]
@@ -165,9 +164,9 @@ def _scatter(terms, n_cols, like):
         _const(tuple(float(c) for _, c in terms if not torch.is_tensor(c)),
                like.dtype, like.device)[:, None].expand(len(f_idx), n)])
     idx = _const(tuple(t_idx + f_idx), torch.int64, like.device)
-    out = torch.zeros((N_STATE * n_cols, n), dtype=like.dtype,
+    out = torch.zeros((n_rows * n_cols, n), dtype=like.dtype,
                       device=like.device)
-    return out.index_put((idx,), vals, accumulate=True).view(N_STATE, n_cols,
+    return out.index_put((idx,), vals, accumulate=True).view(n_rows, n_cols,
                                                               n)
 
 
@@ -175,6 +174,24 @@ def _system(thetas: torch.Tensor):
     """thetas [N, P] -> (A, B, C, D) batch-last, the SW2007 equations in
     A x_{t-1} + B x_t + C E x_{t+1} + D eps = 0 form, one row per
     equation, with the steady-state ratios computed from theta."""
+    return build_system(thetas, STATE_NAMES, SHOCK_NAMES)
+
+
+@functools.lru_cache(maxsize=None)
+def _index(names: tuple) -> Dict[str, int]:
+    return {n: i for i, n in enumerate(names)}
+
+
+def build_system(thetas: torch.Tensor, states, shocks, amend=None, rows=()):
+    """(A, B, C, D) batch-last of SW2007's equations over the state and
+    shock names `states` and `shocks` (SW2007's first, in their order), for
+    a model that extends SW2007 (models/sw_pi_fg.py): `amend` maps the
+    label of a row ("policy", "ms") to a dict of extra a=, b=, c=, d= terms
+    for it, and `rows` holds one such dict per further equation, written
+    after SW2007's 37. thetas' first 36 columns are SW2007's parameters."""
+    amend = amend or {}
+    sidx, eidx = _index(tuple(states)), _index(tuple(shocks))
+    n_state, n_shock = len(states), len(shocks)
     th = thetas.T                                         # [P, N]
     (csadjcost, csigma, chabb, cprobw, csigl, cprobp, cindw, cindp, czcap,
      cfc, crpi, crr, cry, crdy, constepinf, constebeta, constelab, ctrend,
@@ -203,13 +220,13 @@ def _system(thetas: torch.Tensor):
     terms = {"A": [], "B": [], "C": [], "D": []}
     row = [0]
 
-    def eq(a=(), b=(), c=(), d=()):
-        r = row[0]
-        for mat, lst, index, width in (("A", a, _IDX, N_STATE),
-                                       ("B", b, _IDX, N_STATE),
-                                       ("C", c, _IDX, N_STATE),
-                                       ("D", d, _EIDX, N_SHOCK)):
-            for name, coef in lst:
+    def eq(a=(), b=(), c=(), d=(), label=None):
+        r, more = row[0], amend.get(label, {})
+        for mat, lst, index, width in (("A", a, sidx, n_state),
+                                       ("B", b, sidx, n_state),
+                                       ("C", c, sidx, n_state),
+                                       ("D", d, eidx, n_shock)):
+            for name, coef in (*lst, *more.get(mat.lower(), ())):
                 terms[mat].append((r * width + index[name], coef))
         row[0] += 1
 
@@ -314,7 +331,7 @@ def _system(thetas: torch.Tensor):
     eq(a=[("r", crr), ("y", -crdy), ("yf", crdy)],
        b=[("r", -1.0), ("pinf", crpi * (1 - crr)),
           ("y", cry * (1 - crr) + crdy), ("yf", -cry * (1 - crr) - crdy),
-          ("ms", 1.0)])
+          ("ms", 1.0)], label="policy")
     # 24. kp = (1-cikbar)*kp(-1) + cikbar*inve + cikbar*cgamma^2*csadjcost*qs
     eq(a=[("kp", 1 - cikbar)],
        b=[("kp", -1.0), ("inve", cikbar),
@@ -330,7 +347,7 @@ def _system(thetas: torch.Tensor):
     # 28. qs = crhoqs*qs(-1) + eqs
     eq(a=[("qs", crhoqs)], b=[("qs", -1.0)], d=[("eqs", 1.0)])
     # 29. ms = crhoms*ms(-1) + em
-    eq(a=[("ms", crhoms)], b=[("ms", -1.0)], d=[("em", 1.0)])
+    eq(a=[("ms", crhoms)], b=[("ms", -1.0)], d=[("em", 1.0)], label="ms")
     # 30. spinf = crhopinf*spinf(-1) + epinf - cmap*epinfma(-1)
     eq(a=[("spinf", crhopinf), ("epinfma", -cmap)], b=[("spinf", -1.0)],
        d=[("epinf", 1.0)])
@@ -346,9 +363,13 @@ def _system(thetas: torch.Tensor):
     for lag, cur in [("ylag", "y"), ("clag", "c"), ("ivlag", "inve"),
                      ("wlag", "w")]:
         eq(a=[(cur, 1.0)], b=[(lag, -1.0)])
+    for extra in rows:
+        eq(**extra)
 
-    assert row[0] == N_STATE, f"wrote {row[0]} equations for {N_STATE} states"
-    return tuple(_scatter(terms[m], N_SHOCK if m == "D" else N_STATE, thetas)
+    if row[0] != n_state:
+        raise ValueError(f"wrote {row[0]} equations for {n_state} states")
+    return tuple(_scatter(terms[m], n_state,
+                          n_shock if m == "D" else n_state, thetas)
                  for m in "ABCD")
 
 

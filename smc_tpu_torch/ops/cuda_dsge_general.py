@@ -44,7 +44,9 @@ import torch
 from smc_tpu_torch import _build
 from smc_tpu_torch.models.dsge import (bl_solve_linear_re,
                                        bl_kalman_loglike_chandrasekhar)
+from smc_tpu_torch.ops import cuda_dsge_expectations
 from smc_tpu_torch.ops.cuda_dsge import _check, _cuda_device, _raise_on
+from smc_tpu_torch.tracing import span
 
 LAUNCHES = {"re_general": 0, "kalman_general": 0}
 
@@ -215,9 +217,16 @@ def kalman_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H, data, ok=None,
     return out
 
 
-def dsge_loglike(A, B, C, D, Q, Z, d_obs, H, data):
-    """Full DSGE likelihood: RE solve, then the Kalman filter on the
-    particles whose solve succeeded; rejected draws -> -inf."""
+def dsge_loglike(A, B, C, D, Q, Z, d_obs, H, data, expectation_rows=()):
+    """Full DSGE likelihood: RE solve, the expectation rows of Z (if any;
+    ops/cuda_dsge_expectations.py, models/dsge.py LinearDSGE), then the
+    Kalman filter on the particles whose solve succeeded; rejected draws ->
+    -inf. Without expectation rows: two launches, the RE and Kalman
+    kernels."""
     _domain(A.shape[0], D.shape[1], Z.shape[0], data.shape[-1])
     X, M, ok = solve_linear_re(A, B, C, D)
+    if expectation_rows:
+        with span("smc.likelihood.expectations"):
+            Z = cuda_dsge_expectations.expectation_rows(Z, X, ok,
+                                                        expectation_rows)
     return kalman_chandrasekhar(X, M, Q, Z, d_obs, H, data, ok=ok)

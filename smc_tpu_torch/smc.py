@@ -54,8 +54,8 @@ from smc_tpu_torch.cloud import (Cloud, ARRAY_FIELDS, weighted_mean,
 from smc_tpu_torch.params import ParamSpace
 from smc_tpu_torch.rng import TorchDraws, ParticleDraws, ReplayDraws
 from smc_tpu_torch.tracing import span
-from smc_tpu_torch.ops import (cuda_dsge, cuda_dsge_general, cuda_eigh,
-                               cuda_metropolis)
+from smc_tpu_torch.ops import (cuda_dsge, cuda_dsge_expectations,
+                               cuda_dsge_general, cuda_eigh, cuda_metropolis)
 from smc_tpu_torch.ops.correction import correct
 from smc_tpu_torch.ops.schedule import fixed_schedule, solve_adaptive_phi
 from smc_tpu_torch.ops.resample import (resample as resample_indices,
@@ -270,7 +270,8 @@ def _initial_state(cloud, device, c, phi, j, phi_prop, resampled_last,
 
 # the kernels' launch counters
 _COUNTERS = (cuda_dsge.LAUNCHES, cuda_dsge_general.LAUNCHES,
-             cuda_eigh.LAUNCHES, cuda_metropolis.LAUNCHES)
+             cuda_dsge_expectations.LAUNCHES, cuda_eigh.LAUNCHES,
+             cuda_metropolis.LAUNCHES)
 
 
 def _add_counts(counters, counts, times=1):

@@ -24,8 +24,10 @@ of one call share its `smc.estimation`):
                      the host, the writes
   inside a stage or the capture: smc.correction, smc.selection,
   smc.mutation; inside a round, stage or capture: smc.likelihood (each
-  batched likelihood call); wherever a mesh gathers on the host:
-  smc.gather.
+  batched likelihood call), and inside it, for a LinearDSGE with
+  expectation rows, smc.likelihood.expectations (the rows filled from the
+  solved transition, models/dsge.py, ops/cuda_dsge_general.py); wherever a
+  mesh gathers on the host: smc.gather.
 
 No span opens around a graph replay: no host code runs inside one.
 """

@@ -26,6 +26,11 @@ from smc_tpu_torch.parallel import mesh as mesh_mod
 
 from torch_parity import StubMesh
 
+from smc_tpu_torch.distributions import Uniform
+from smc_tpu_torch.models.dsge import LinearDSGE
+from smc_tpu_torch.params import parameter
+from smc_tpu_torch.rng import TorchDraws
+
 N_PHI = 5
 # a prior draw with alpha1 above this has no finite likelihood, so the
 # initial draw takes redraw rounds (Normal(0, 10) prior: ~7% of the draws)
@@ -125,6 +130,56 @@ def test_no_span_opens_while_no_profiler_records(model, monkeypatch, fused):
     assert res.fused == fused and len(res.cloud.tempering_schedule) == N_PHI
 
 
+@pytest.fixture(scope="module")
+def expectations_model():
+    """Two AR(1) states, their sum observed, with its expectation two
+    quarters ahead and its mean over the next four: a LinearDSGE with two
+    expectation rows, at a size the CPU runs in a blink."""
+    def system(th):
+        n = th.shape[0]
+        A = torch.zeros((2, 2, n), dtype=torch.float64, device=th.device)
+        A[0, 0], A[1, 1] = 0.9, th[:, 0]
+        eye = torch.eye(2, dtype=torch.float64, device=th.device)
+        B = (-eye)[:, :, None].expand(2, 2, n).contiguous()
+        D = eye[:, :, None].expand(2, 2, n).contiguous()
+        return A, B, torch.zeros_like(A), D
+
+    def measurement(th):
+        n = th.shape[0]
+        Z = torch.zeros((3, 2, n), dtype=torch.float64, device=th.device)
+        Z[0] = 1.0
+        H = (1e-2 * torch.eye(3, dtype=torch.float64, device=th.device)
+             )[:, :, None].expand(3, 3, n).contiguous()
+        return torch.zeros((3, n), dtype=torch.float64, device=th.device), \
+            Z, H
+
+    def shock_cov(th):
+        sig = torch.stack([torch.ones_like(th[:, 1]), th[:, 1]], 1)
+        return torch.diag_embed(sig * sig, dim1=0, dim2=1).contiguous()
+
+    params = [parameter("rho", 0.5, (0.0, 0.95), prior=Uniform(0.0, 0.95)),
+              parameter("sig", 1.0, (0.1, 3.0), prior=Uniform(0.1, 3.0))]
+    dsge = LinearDSGE(params, system, measurement, 2, shock_cov,
+                      expectation_rows=((1, 0, 2, 2), (2, 0, 1, 4)))
+    y = dsge.simulate([0.5, 1.0], 40, TorchDraws(3, "cpu")).numpy()
+    return dsge, params, y
+
+
+def test_expectation_rows_open_their_span_in_each_likelihood_call(
+        expectations_model):
+    dsge, params, y = expectations_model
+    res, prof = _traced(lambda: smc_tpu_torch.smc(
+        dsge.loglike_batched, params, y, n_parts=64, n_phi=N_PHI, seed=1,
+        batched=True, verbose="none", device="cpu"))
+    tree = _tree(prof)
+    calls = 1 + res.init_rounds + N_PHI - 1
+    assert tree[("smc.likelihood", "smc.init.round")] + tree[
+        ("smc.likelihood", "smc.mutation")] == calls
+    assert tree[("smc.likelihood.expectations", "smc.likelihood")] == calls
+    assert sum(n for (s, _), n in tree.items()
+               if s == "smc.likelihood.expectations") == calls
+
+
 def test_profile_dir_traces_the_whole_call(model, tmp_path):
     _smc(model, profile_dir=str(tmp_path))
     with open(tmp_path / "smc_trace.json") as f:
@@ -166,3 +221,29 @@ def test_on_the_card_the_capture_sits_in_the_first_chunk(model):
         assert tree[(step, "smc.capture")] == 1
     assert tree[("smc.likelihood", "smc.capture")] == 0
     assert tree[("smc.likelihood", "smc.mutation")] == 2
+
+
+@pytest.mark.cuda
+def test_on_the_card_the_expectation_rows_count_each_replay(
+        expectations_model):
+    """On the card the rows' kernel launches once per likelihood call, its
+    counter counting each replay; its span opens in the init rounds, the
+    eager stage and the capture, and in no replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from smc_tpu_torch.ops import cuda_dsge_expectations as ce
+    dev = torch.device("cuda", 0)
+    dsge, params, y = expectations_model
+    run = lambda n_phi: smc_tpu_torch.smc(
+        dsge.loglike_batched, params, y, n_parts=64, n_phi=n_phi, seed=1,
+        batched=True, verbose="none", device=dev)
+    run(N_PHI)                                    # builds the kernels
+    for n_phi in (N_PHI, 2 * N_PHI + 1):
+        before = ce.LAUNCHES["expectation_rows"]
+        res, prof = _traced(lambda: run(n_phi), cuda=True)
+        assert res.fused and res.capture_seconds > 0
+        assert ce.LAUNCHES["expectation_rows"] - before == (
+            1 + res.init_rounds + n_phi - 1 + res.masked_stages)
+        tree = _tree(prof)
+        assert tree[("smc.likelihood.expectations", "smc.likelihood")] == (
+            1 + res.init_rounds + 2)

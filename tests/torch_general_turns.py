@@ -2,8 +2,8 @@
 (csrc/dsge_general_kernels.cu) against another csrc/ tree's, in turns
 (other, this, this, other) on one card.
 
-    python3 tests/torch_general_turns.py --other DIR [--shape sw|as2|NS,NK,NO]
-                                         [--out FILE]
+    python3 tests/torch_general_turns.py --other DIR
+        [--shape sw|as2|swpifg|swpifg-post|NS,NK,NO] [--out FILE]
 
 DIR holds a dsge_general_kernels.cu with this checkout's C interface
 (smc_general_prepare, smc_general_re, smc_general_kalman): a copy of
@@ -13,8 +13,15 @@ checkout's flags for the library (tests/torch_turns.py); this checkout's
 library through smc_tpu_torch._build. Both are launched through the same
 bare ctypes calls on outputs allocated once, on chip_smoke.py's inputs:
 "sw" (the default) its general phase's SW_N_PARTS Smets-Wouters prior
-draws, "as2" AS_N_PARTS AS-2obs prior draws, or GEN_N synthetic systems
-at (n_state, n_shock, n_obs). Each turn times the RE solve and the Kalman
+draws, "as2" AS_N_PARTS AS-2obs prior draws, "swpifg" SW_N_PARTS prior
+draws of models/sw_pi_fg.py (44 states, 14 observables: the Kalman kernel
+on rows of 16), "swpifg-post" as many draws from the normal of
+perfbench/posteriors/sw_pi_fg.json's posterior means and standard
+deviations, each parameter clamped to its prior's bounds (the clouds the
+benchmark's swpifg-4k-fixed filters in its later stages, without their
+correlations), or GEN_N synthetic systems at (n_state, n_shock, n_obs).
+sw_pi_fg's Z holds its expectation rows, filled once from this checkout's
+RE and expectation-rows kernels. Each turn times the RE solve and the Kalman
 filter back to back (chip_smoke.cuda_ms) and from a CUDA graph
 (chip_smoke.graph_ms). Prints both builds' ptxas lines (registers, spills)
 and one line per turn; with --out, writes the numbers, with the card's
@@ -99,16 +106,52 @@ def inputs_for(shape: str, dev):
         d, Z, H = meas(th)
         return (*mod._system(th), mod._shock_cov(th), Z, d, H,
                 torch.as_tensor(data, device=dev).contiguous())
+    if shape in ("swpifg", "swpifg-post"):
+        return sw_pi_fg_inputs(shape, dev)
     n_s, n_k, n_o = (int(v) for v in shape.split(","))
     sys_np, data = synthetic_system(n_s, n_k, chip_smoke.GEN_N, n_o=n_o)
     return tuple(torch.as_tensor(x, device=dev) for x in (*sys_np, data))
+
+
+def sw_pi_fg_inputs(shape: str, dev):
+    """sw_pi_fg's A, B, C, D, Q, Z, d, H, data at its prior draws
+    ("swpifg") or at draws from its posterior table ("swpifg-post"), Z's
+    expectation rows filled."""
+    import torch
+    import chip_smoke
+    from smc_tpu_torch.models import sw_pi_fg as fg
+    from smc_tpu_torch.ops import cuda_dsge_expectations as ce
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    from smc_tpu_torch.params import ParamSpace
+    from smc_tpu_torch.rng import TorchDraws
+    space, n = ParamSpace(fg.sw_pi_fg_parameters()), chip_smoke.SW_N_PARTS
+    if shape == "swpifg":
+        th = space.sample_prior(TorchDraws(2, dev), n, device=dev)
+    else:
+        with open(ROOT / "perfbench" / "posteriors" / "sw_pi_fg.json") as f:
+            table = json.load(f)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        mean, sd = (torch.as_tensor(table[k], device=dev)
+                    for k in ("mean", "sd"))
+        th = mean + sd * torch.randn((n, mean.numel()), generator=gen,
+                                     dtype=mean.dtype, device=dev)
+        th = torch.minimum(torch.maximum(
+            th, torch.as_tensor(space.lo, device=dev)),
+            torch.as_tensor(space.hi, device=dev))
+    A, B, C, D = fg._system(th)
+    d, Z, H = fg._measurement(th)
+    X, _, ok = g.solve_linear_re(A, B, C, D)
+    Z = ce.expectation_rows(Z, X, ok, fg.EXPECTATION_ROWS)
+    data = torch.as_tensor(fg.load_sw_pi_fg_data(), device=dev)
+    return A, B, C, D, fg._shock_cov(th), Z, d, H, data.contiguous()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--shape", default="sw",
-                    help="sw, as2 or n_state,n_shock,n_obs (default sw)")
+                    help="sw, as2, swpifg, swpifg-post or n_state,n_shock,"
+                         "n_obs (default sw)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
