@@ -967,6 +967,11 @@ def general_phase(dev, ptxas):
           f"products), plain "
           f"{kal_plain:.4f}; re_general_kernel<256> {regs['re']}; "
           f"kalman_general_kernel<256,8> {regs['kalman']}")
+    # the large RE block runs two to an SM only within 128 registers, which
+    # its launch bound holds it to: spilling is the price it must not pay
+    if regs["re"] is None or \
+            "0 bytes spill stores, 0 bytes spill loads" not in regs["re"]:
+        raise RuntimeError(f"re_general_kernel<256> spills: {regs['re']}")
 
     # AS-2obs's shape (n_state 6: the 64-thread block; n_obs 2: Cholesky)
     _, as_in = inputs(as_dsge, as_dsge.an_schorfheide_parameters(),

@@ -42,8 +42,9 @@
 // cyclic-reduction iteration is a 37 x 111 Gauss-Jordan and four 37^3
 // products (~0.65 Mflop), a Chandrasekhar step ~40 kflop; a whole particle
 // ~20 Mflop (~10 in the RE solve, ~10 in the filter, ~4 of them the
-// doubling) against ~35 kB of inputs. A particle's work is a chain of small dependent steps (two
-// barriers per pivot step; per filter step, the chain through M: warp 0's
+// doubling) against ~35 kB of inputs. A particle's work is a chain of small
+// dependent steps (per Gauss-Jordan pivot step warp 0's pivot search,
+// shuffles and divisions; per filter step, the chain through M: warp 0's
 // factor, solve and M-update, the product warps' M W'Z' and Z U), so its
 // latency, not the card's rate, sets the time: enough particles must be in
 // flight, a few blocks per SM. A block is kSmallTeam threads up to n_state
@@ -52,8 +53,10 @@
 //
 // The RE solve follows bl_solve_linear_re operation for operation:
 // Gauss-Jordan with the serial pivot rule (the first maximal |entry| at or
-// below the diagonal), each sum of products in index order, the residual
-// test, the two 12-squaring spectral bounds and the finiteness test. It
+// below the diagonal; on the large team by panels of pivot columns, warp 0
+// factoring each, to the same bits), each sum of products in index order,
+// the residual test, the two 12-squaring spectral bounds and the finiteness
+// test. It
 // leaves cyclic reduction once max(|A0|, |A2|) <= 2^-27 max(|A|, |B|, |C|,
 // 1), as the n_state <= 8 kernels do (the plain version runs all n_iter
 // iterations; the iteration is quadratic, so they agree to rounding). The
@@ -65,6 +68,7 @@
 
 #include <math.h>
 #include <stddef.h>
+#include <string.h>
 
 #include "lanes.cuh"
 
@@ -174,10 +178,45 @@ SMC_HD inline void block_sync() {
 #endif
 }
 
+// warp 0 alone runs the block that follows (on the host: every lane of it,
+// phase by phase, as SMC_LANES does)
+#ifdef __CUDA_ARCH__
+#define SMC_INNOVATION_WARP if (threadIdx.x < smc::kWarp)
+#else
+#define SMC_INNOVATION_WARP
+#endif
+
+// the product warps (the block's warps but warp 0) alone run the block that
+// follows (on the host: SMC_TEAM's threads t >= 32 of it)
+#ifdef __CUDA_ARCH__
+#define SMC_PRODUCT_WARPS if (threadIdx.x >= smc::kWarp)
+#else
+#define SMC_PRODUCT_WARPS
+#endif
+
 SMC_HD inline bool finite(double x) { return x - x == 0.0; }
 // |x| with NaN taken as +inf, for maxima that must see a NaN
 SMC_HD inline double mag(double x) { return x != x ? INFINITY : fabs(x); }
 SMC_HD inline double dmax(double a, double b) { return b > a ? b : a; }
+// The bits of a double.
+SMC_HD inline unsigned long long dbits(double x) {
+#ifdef __CUDA_ARCH__
+  return (unsigned long long)__double_as_longlong(x);
+#else
+  unsigned long long b;
+  memcpy(&b, &x, sizeof b);
+  return b;
+#endif
+}
+
+// a / b, IEEE's quotient; a zero a over a b that is neither zero nor NaN
+// by the signs alone (on the card a zero quotient takes the division's slow
+// path, a branch and a call)
+SMC_HD inline double quot(double a, double b) {
+  if (a == 0.0 && b == b && b != 0.0)
+    return signbit(a) != signbit(b) ? -0.0 : 0.0;
+  return a / b;
+}
 
 // ---------------------------------------------------------------------------
 // Reductions over the team: each thread's K values -> the team's, the same
@@ -261,19 +300,24 @@ SMC_HD inline void team_reduce(Lanes<double[K], N>& part, double* red,
 // ---------------------------------------------------------------------------
 
 // W [n][ld]: [A | B] of width w -> columns n..w-1 hold A^-1 B (the other
-// columns are left partly eliminated: nothing reads them). Per pivot step
-// k, two phases: every warp finds the pivot row p, the first maximal
-// |W[r][k]| with r >= k (each lane the first maximum of its rows r = k +
-// lane + 32 i, then warp_argmax: the serial rule exactly; a column with no
-// comparable entry, all NaN, keeps p = k), moves row k to row p and row p
-// to the row buffer, and forms the factors W[i][k] / pivot of the swapped
-// column (fac[k] holds the pivot); then every row i != k becomes
-// W[i] - fac[i] row, and row k row / pivot. Column k and the columns
-// before it are never read again, so they are not written. piv_rows, where
-// given (the tests' host build), receives each step's pivot row.
+// columns are left partly eliminated: nothing reads them). Both forms below
+// follow the serial rule: per pivot step k the pivot row p is the first
+// maximal |W[r][k]| with r >= k (a column with no comparable entry, all
+// NaN, keeps p = k), rows k and p trade places, the factors are the swapped
+// column's entries over the pivot, every row i != k becomes W[i] - fac[i]
+// row, and row k row / pivot. Column k and the columns before it are never
+// read again, so they are not written. piv_rows, where given (the tests'
+// host build), receives each step's pivot row. fac [n] and row [w] are
+// scratch.
+//
+// The small team, two barriers a step: every warp finds the pivot (each
+// lane the first maximum of its rows r = k + lane + 32 i, then
+// warp_argmax), moves row k to row p and row p to the row buffer, and forms
+// the factors (fac[k] holds the pivot); then the team updates the rows.
 template <int N>
-SMC_HD inline void gauss_jordan(double* W, int ld, int n, int w, double* fac,
-                                double* row, int* piv_rows = nullptr) {
+SMC_HD inline void gauss_jordan_steps(double* W, int ld, int n, int w,
+                                      double* fac, double* row,
+                                      int* piv_rows) {
   for (int k = 0; k < n; ++k) {
     Lanes<double[2], N> cand;
     SMC_TEAM(N, t) {
@@ -314,6 +358,377 @@ SMC_HD inline void gauss_jordan(double* W, int ld, int n, int w, double* fac,
     }
     block_sync();
   }
+}
+
+// The large team (n from kSmallMax + 1 to 64) takes the pivot columns in
+// panels of kPanel, one block barrier a panel.
+//
+// Warp 0 factors a panel in registers. Lane l holds row l and row l + 32 of
+// the panel's columns (its two slots); each slot's item stays in its slot
+// while its label, the row it is in now, follows the serial rule's swaps. A
+// step takes the pivot by the serial rule over the labels (the first
+// maximal |x| at or below the diagonal, by warp reductions), trades two
+// labels where the serial rule moves two rows, forms the factors and
+// applies the step to the panel's later columns, the pivot's entries
+// passed by shuffles. A step's divisions run as two: each lane's first
+// slot's factor, then its second slot's or, in the lanes without one, the
+// pivot's later entries over the pivot (a double division's slow path is a
+// branch and a call, so the divisions are not left to repeat down the
+// chain). It then publishes the panel: each step's factors into the
+// panel's own columns, which nothing reads again (the pivot's own entry
+// holds the pivot), each step's pivot row (where it stood at the panel's
+// start), and where the items of the panel's rows go.
+//
+// The other warps then update the columns past the panel, two threads a
+// column, each entry read from shared memory once and written once, each
+// item written to the row the panel's swaps take it to (panel_update).
+// Warp 1's first columns hold the next panel's: once they are done it
+// signals warp 0, which factors the next panel while the others finish
+// (look-ahead), its metadata in the other half of double buffers. Every
+// entry sees the serial rule's operations in its order, so the bits are
+// the small team's.
+constexpr int kPanel = 4;
+
+// v[j] <- lane src(j)'s v[j] for j >= j0 (the others unchanged)
+template <int K, class Src>
+SMC_HD inline void warp_bcast(Lanes<double[K], kWarp>& v, Src src, int j0) {
+#ifdef __CUDA_ARCH__
+  SMC_UNROLL for (int j = 0; j < K; ++j) if (j >= j0) v[0][j] =
+      __shfl_sync(0xffffffffu, v[0][j], src(j));
+#else
+  for (int j = j0; j < K; ++j) {
+    const double x = v[src(j)][j];
+    for (int l = 0; l < kWarp; ++l) v[l][j] = x;
+  }
+#endif
+}
+
+// the warp's largest (least) value, in every lane
+SMC_HD inline unsigned warp_max_u32(Lanes<unsigned, kWarp>& v) {
+#ifdef __CUDA_ARCH__
+  return __reduce_max_sync(0xffffffffu, v[0]);
+#else
+  unsigned m = v[0];
+  for (int l = 1; l < kWarp; ++l) m = v[l] > m ? v[l] : m;
+  return m;
+#endif
+}
+SMC_HD inline unsigned warp_min_u32(Lanes<unsigned, kWarp>& v) {
+#ifdef __CUDA_ARCH__
+  return __reduce_min_sync(0xffffffffu, v[0]);
+#else
+  unsigned m = v[0];
+  for (int l = 1; l < kWarp; ++l) m = v[l] < m ? v[l] : m;
+  return m;
+#endif
+}
+
+// the lanes where v holds, a bit each; the lowest lane of a non-empty mask;
+// lane src's v, in every lane
+SMC_HD inline unsigned warp_ballot(Lanes<bool, kWarp>& v) {
+#ifdef __CUDA_ARCH__
+  return __ballot_sync(0xffffffffu, v[0]);
+#else
+  unsigned b = 0;
+  for (int l = 0; l < kWarp; ++l) b |= v[l] ? 1u << l : 0u;
+  return b;
+#endif
+}
+SMC_HD inline int lowest_lane(unsigned mask) {
+#ifdef __CUDA_ARCH__
+  return __ffs(mask) - 1;
+#else
+  int l = 0;
+  while (!(mask >> l & 1u)) ++l;
+  return l;
+#endif
+}
+SMC_HD inline unsigned warp_read_u32(Lanes<unsigned, kWarp>& v, int src) {
+#ifdef __CUDA_ARCH__
+  return __shfl_sync(0xffffffffu, v[0], src);
+#else
+  return v[src];
+#endif
+}
+
+// The panel k0..k0+bw-1 of W [n][ld] on warp 0: factored, and published
+// into W's columns k0.. (the factors), piv_at[c] (step c's pivot row at the
+// panel's start) and go_to[r - k0] (the row that the item in row r of the
+// panel's rows goes to).
+SMC_HD inline void panel_factor(double* W, int ld, int n, int k0, int bw,
+                                double* piv_at, double* go_to,
+                                int* piv_rows) {
+  // x[l][2 c + q]: column c's entry of row l + 32 q; lab: each slot's row
+  // now (n: no item)
+  Lanes<double[2 * kPanel], kWarp> x;
+  Lanes<int[2], kWarp> lab;
+  SMC_LANES(l) {
+    SMC_UNROLL for (int q = 0; q < 2; ++q) {
+      const int r = l + kWarp * q;
+      lab[l][q] = r < n ? r : n;
+      SMC_UNROLL for (int c = 0; c < kPanel; ++c)
+        x[l][2 * c + q] = r < n && c < bw ? W[r * ld + k0 + c] : 0.0;
+    }
+  }
+  // the lanes that divide the pivot's later entries: the last kPanel, in
+  // their second division where they hold no second row
+  constexpr int kU = kWarp - kPanel;
+  const bool u_apart = n > kWarp + kU;
+  SMC_UNROLL for (int c = 0; c < kPanel; ++c) {
+    if (c >= bw) break;
+    const int k = k0 + c;
+    // the pivot: of the rows >= k, the largest |x| (NaN never), then the
+    // least row. Keys: the bits of |x| + 2^32 (0: no candidate), their
+    // high word, then their low word, then the row. Where one lane holds
+    // the largest high word, its row and slot are the pivot's.
+    Lanes<unsigned, kWarp> hi, lo, rw, ws;
+    SMC_LANES(l) {
+      unsigned long long best = 0;
+      int arg = n, slot = 0;
+      SMC_UNROLL for (int q = 0; q < 2; ++q) {
+        const int r = lab[l][q];
+        const double a = fabs(x[l][2 * c + q]);
+        const unsigned long long key = dbits(a) + (1ull << 32);
+        if (r >= k && r < n && a == a &&
+            (key > best || (key == best && r < arg))) {
+          best = key;
+          arg = r;
+          slot = l + kWarp * q;
+        }
+      }
+      hi[l] = (unsigned)(best >> 32);
+      lo[l] = (unsigned)best;
+      rw[l] = (unsigned)arg;
+      ws[l] = (unsigned)(arg << 8 | slot);
+    }
+    const unsigned h = warp_max_u32(hi);
+    Lanes<bool, kWarp> top;
+    SMC_LANES(l) top[l] = hi[l] == h;
+    const unsigned tops = warp_ballot(top);
+    int p, s;
+    if (h != 0u && (tops & (tops - 1u)) == 0u) {
+      const unsigned v = warp_read_u32(ws, lowest_lane(tops));
+      p = (int)(v >> 8);
+      s = (int)(v & 255u);
+    } else {
+      SMC_LANES(l) lo[l] = top[l] ? lo[l] : 0u;
+      const unsigned m = warp_max_u32(lo);
+      SMC_LANES(l) rw[l] = top[l] && lo[l] == m ? rw[l] : (unsigned)n;
+      const unsigned pr = warp_min_u32(rw);
+      p = h != 0u && pr < (unsigned)n ? (int)pr : k;
+      Lanes<unsigned, kWarp> own;
+      SMC_LANES(l) {
+        own[l] = lab[l][0] == p ? l + 1 : lab[l][1] == p ? l + kWarp + 1 : 0;
+      }
+      s = (int)warp_max_u32(own) - 1;
+    }
+    const int sl = s % kWarp, sq = s / kWarp;
+    // the pivot's entries in columns c.. (entry c: the pivot)
+    Lanes<double[kPanel], kWarp> rv;
+    SMC_LANES(l) {
+      SMC_UNROLL for (int j = 0; j < kPanel; ++j) rv[l][j] =
+          sq ? x[l][2 * j + 1] : x[l][2 * j];
+    }
+    warp_bcast(rv, [=](int) { return sl; }, c);
+    // the divisions: f[0], f[1] the slots' factors; u[j] the pivot's entry
+    // j over the pivot
+    Lanes<double[2], kWarp> f;
+    Lanes<double[kPanel], kWarp> u;
+    SMC_LANES(l) {
+      const double piv = rv[l][c];
+      if (l == 0) {
+        piv_at[c] = s;
+        if (piv_rows != nullptr) piv_rows[k] = p;
+      }
+      SMC_UNROLL for (int q = 0; q < 2; ++q) {
+        const int r = lab[l][q];
+        lab[l][q] = r == k ? p : r == p ? k : r;
+      }
+      double ru = rv[l][0];  // the pivot's entry (l - kU) % kPanel
+      SMC_UNROLL for (int j = 1; j < kPanel; ++j)
+        ru = (l - kU) % kPanel == j ? rv[l][j] : ru;
+      f[l][0] = quot(x[l][2 * c], piv);
+      const bool two = l + kWarp < n;
+      const double d = quot(two ? x[l][2 * c + 1] : ru, piv);
+      f[l][1] = d;
+      double e = d;
+      if (u_apart) e = quot(ru, piv);
+      SMC_UNROLL for (int j = 0; j < kPanel; ++j) u[l][j] = e;
+    }
+    warp_bcast(u, [=](int j) { return kU + j; }, c + 1);
+    SMC_LANES(l) {
+      SMC_UNROLL for (int q = 0; q < 2; ++q) {
+        const bool is_piv = l + kWarp * q == s;
+        const double fq = is_piv ? rv[l][c] : f[l][q];
+        x[l][2 * c + q] = fq;
+        SMC_UNROLL for (int j = c + 1; j < kPanel; ++j) {
+          const double v = x[l][2 * j + q] - fq * rv[l][j];
+          x[l][2 * j + q] = is_piv ? u[l][j] : v;
+        }
+      }
+    }
+  }
+  SMC_LANES(l) {
+    SMC_UNROLL for (int q = 0; q < 2; ++q) {
+      const int r = l + kWarp * q;
+      if (r >= n) continue;
+      SMC_UNROLL for (int c = 0; c < kPanel; ++c)
+        if (c < bw) W[r * ld + k0 + c] = x[l][2 * c + q];
+      if (r >= k0 && r < k0 + bw) go_to[r - k0] = lab[l][q];
+    }
+  }
+}
+
+// Warp 1 tells warp 0 that the next panel's columns are up to date: a
+// named barrier of the two warps, at which warp 1 arrives without waiting.
+// On the host nothing: the update runs before warp 0's next factor.
+SMC_HD inline void ahead_post() {
+#ifdef __CUDA_ARCH__
+  if (threadIdx.x / kWarp == 1)
+    asm volatile("bar.arrive 1, %0;" ::"n"(2 * kWarp) : "memory");
+#endif
+}
+SMC_HD inline void ahead_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.sync 1, %0;" ::"n"(2 * kWarp) : "memory");
+#endif
+}
+
+// Columns j0..w-1 through the panel k0..k0+bw-1 that warp 0 published
+// (factors in W's columns k0.., piv_at, go_to), by the team's threads past
+// warp 0, two of them a column (its parts h = 0, 1), (N - kWarp) / 2
+// columns a pass: both parts form each step's pivot row entry after the
+// panel's earlier steps; after a warp barrier part 0 moves the items that
+// the swaps take out of the panel's rows; after another the parts share
+// the pivots' final entries (steps 2 i + h) and the other rows' steps (four
+// rows at a time, in turns). With `ahead`, warp 1 signals warp 0 once it
+// has done its first columns, which hold the next panel's.
+template <int N>
+SMC_HD inline void panel_update(double* W, int ld, int n, int w, int k0,
+                                int bw, const double* piv_at,
+                                const double* go_to, bool ahead) {
+  constexpr int P = 2, t0 = kWarp, nt = N - kWarp;
+  static_assert(kWarp / P >= kPanel, "warp 1 holds the next panel");
+  const int j0 = k0 + bw;
+  int src[kPanel];
+  unsigned long long skip = 0;  // the pivots' rows past the panel's rows
+  SMC_UNROLL for (int c = 0; c < kPanel; ++c) {
+    src[c] = c < bw ? (int)piv_at[c] : 0;
+    if (c < bw && src[c] >= k0 + bw) skip |= 1ull << src[c];
+  }
+  for (int jb = j0; jb < w; jb += nt / P) {
+    Lanes<double[kPanel], N> rv;
+    SMC_TEAM(N, t) {
+      const int j = jb + (t - t0) / P;
+      if (t >= t0 && t < t0 + nt && j < w) {
+        SMC_UNROLL for (int c = 0; c < kPanel; ++c) {
+          if (c >= bw) break;
+          const double* F = W + src[c] * ld + k0;
+          double r = W[src[c] * ld + j];
+          SMC_UNROLL for (int d = 0; d < c; ++d) r -= F[d] * rv[t][d];
+          rv[t][c] = r;
+        }
+      }
+    }
+    smc::team_sync<kWarp>();
+    // part 0: the items that the swaps move out of the panel's rows, into
+    // pivots' rows (read above)
+    SMC_TEAM(N, t) {
+      const int j = jb + (t - t0) / P;
+      if (t >= t0 && t < t0 + nt && j < w && (t - t0) % P == 0) {
+        for (int c = 0; c < bw; ++c) {
+          const int to = (int)go_to[c];
+          if (to < k0 + bw) continue;  // a pivot
+          const double* F = W + (k0 + c) * ld + k0;
+          double v = W[(k0 + c) * ld + j];
+          SMC_UNROLL for (int d = 0; d < kPanel; ++d)
+            if (d < bw) v -= F[d] * rv[t][d];
+          W[to * ld + j] = v;
+        }
+      }
+    }
+    smc::team_sync<kWarp>();
+    SMC_TEAM(N, t) {
+      const int j = jb + (t - t0) / P, h = (t - t0) % P;
+      if (t >= t0 && t < t0 + nt && j < w) {
+        // the pivots into the panel's rows, steps P i + h in part h
+        SMC_UNROLL for (int i = 0; i < (kPanel + P - 1) / P; ++i) {
+          const int c = P * i + h;
+          if (c >= bw) break;
+          int sc = src[0];
+          double rc = rv[t][0];
+          SMC_UNROLL for (int e = 1; e < kPanel; ++e) {
+            sc = c == e ? src[e] : sc;
+            rc = c == e ? rv[t][e] : rc;
+          }
+          const double* F = W + sc * ld + k0;
+          double v = quot(rc, F[c]);
+          SMC_UNROLL for (int d = 1; d < kPanel; ++d)
+            if (d < bw && d > c) v -= F[d] * rv[t][d];
+          W[(k0 + c) * ld + j] = v;
+        }
+        // the items that stay (rows m of the others, the panel's rows left
+        // out), four rows at a time, the parts in turns
+        for (int m = 4 * h; m < n - bw; m += 4 * P) {
+          double v[4];
+          int at[4];
+          bool put[4];
+          SMC_UNROLL for (int e = 0; e < 4; ++e) {
+            const int i = m + e < k0 ? m + e : m + e + bw;
+            put[e] = m + e < n - bw && !((skip >> (i & 63)) & 1ull);
+            at[e] = m + e < n - bw ? i : (m < k0 ? m : m + bw);
+            v[e] = W[at[e] * ld + j];
+          }
+          SMC_UNROLL for (int d = 0; d < kPanel; ++d) {
+            if (d < bw) {
+              SMC_UNROLL for (int e = 0; e < 4; ++e)
+                v[e] -= W[at[e] * ld + k0 + d] * rv[t][d];
+            }
+          }
+          SMC_UNROLL for (int e = 0; e < 4; ++e)
+            if (put[e]) W[at[e] * ld + j] = v[e];
+        }
+      }
+    }
+    smc::team_sync<kWarp>();
+    if (ahead && jb == j0) ahead_post();
+  }
+}
+
+template <int N>
+SMC_HD inline void gauss_jordan_panels(double* W, int ld, int n, int w,
+                                       double* fac, double* row,
+                                       int* piv_rows) {
+  // double buffers: a panel's pivot rows in fac, where its rows' items go
+  // in row
+  const auto width = [=](int k0) { return n - k0 < kPanel ? n - k0 : kPanel; };
+  SMC_INNOVATION_WARP {
+    panel_factor(W, ld, n, 0, width(0), fac, row, piv_rows);
+  }
+  block_sync();
+  for (int k0 = 0, b = 0; k0 < n; k0 += kPanel, b = kPanel - b) {
+    const int bw = width(k0), k1 = k0 + bw;
+    SMC_PRODUCT_WARPS {
+      panel_update<N>(W, ld, n, w, k0, bw, fac + b, row + b, k1 < n);
+    }
+    SMC_INNOVATION_WARP {
+      if (k1 < n) {  // the next panel, while the others update the rest
+        ahead_wait();
+        panel_factor(W, ld, n, k1, width(k1), fac + kPanel - b,
+                     row + kPanel - b, piv_rows);
+      }
+    }
+    block_sync();
+  }
+}
+
+template <int N>
+SMC_HD inline void gauss_jordan(double* W, int ld, int n, int w, double* fac,
+                                double* row, int* piv_rows = nullptr) {
+  if constexpr (N == kLargeTeam)
+    gauss_jordan_panels<N>(W, ld, n, w, fac, row, piv_rows);
+  else
+    gauss_jordan_steps<N>(W, ld, n, w, fac, row, piv_rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -591,14 +1006,6 @@ SMC_HD inline double reg_at(const double (&x)[K], int p) {
   return v;
 }
 
-// warp 0 alone runs the block that follows (on the host: every lane of it,
-// phase by phase, as SMC_LANES does)
-#ifdef __CUDA_ARCH__
-#define SMC_INNOVATION_WARP if (threadIdx.x < smc::kWarp)
-#else
-#define SMC_INNOVATION_WARP
-#endif
-
 // v[k] <- the value of v[k] in lane src(l) of lane l's warp, for every lane
 // l and every k
 template <int K, class Src, int N>
@@ -626,14 +1033,6 @@ SMC_HD inline void product_sync() {
     asm volatile("bar.sync 1, %0;" ::"n"(N - kWarp) : "memory");
 #endif
 }
-
-// the product warps (the block's warps but warp 0) alone run the block that
-// follows (on the host: SMC_TEAM's threads t >= 32 of it)
-#ifdef __CUDA_ARCH__
-#define SMC_PRODUCT_WARPS if (threadIdx.x >= smc::kWarp)
-#else
-#define SMC_PRODUCT_WARPS
-#endif
 
 // Hand-offs between warp 0 and the product warps within a filter step:
 // named barriers over the block, at which the producer arrives without

@@ -64,6 +64,13 @@ extern "C" int smc_general_gj_cpu(int n, int w, double* W, int* piv_rows) {
   return 0;
 }
 
+// quot on each of n pairs: q[i] = a[i] / b[i] by the kernels' division.
+extern "C" int smc_general_quot_cpu(const double* a, const double* b,
+                                    double* q, long long n) {
+  for (long long i = 0; i < n; ++i) q[i] = quot(a[i], b[i]);
+  return 0;
+}
+
 // The innovation warp's factor and solve (warp_factor, warp_solve) of each
 // of nb systems: F [nb][o][o] symmetric, B [nb][o][m], m <= o + 1 -> X
 // [nb][o][m] = F^-1 B and logdet [nb] (NaN where the factorization failed).

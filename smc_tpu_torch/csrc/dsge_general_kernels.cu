@@ -36,6 +36,23 @@ re_general_kernel(const double* __restrict__ A, const double* __restrict__ B,
               tol, smem);
 }
 
+// The large team's: two blocks an SM (Smets-Wouters' 78 kB tile and
+// sw_pi_fg's 110 kB both let two share one), so at most 128 registers a
+// thread. The small team's takes no bound: with one its registers change.
+template <>
+__global__ void __launch_bounds__(kLargeTeam, 2)
+re_general_kernel<kLargeTeam>(const double* __restrict__ A,
+                              const double* __restrict__ B,
+                              const double* __restrict__ C,
+                              const double* __restrict__ D,
+                              double* __restrict__ X, double* __restrict__ M,
+                              unsigned char* __restrict__ ok, long long nb,
+                              int n, int k, int n_iter, double tol) {
+  extern __shared__ __align__(16) double smem[];
+  re_block<kLargeTeam>(A, B, C, D, X, M, ok, nb, (long long)blockIdx.x, n, k,
+                       n_iter, tol, smem);
+}
+
 // The Kalman kernel's register cap, from the threads an SM is to hold: up to
 // n_obs 8, 768 (three large blocks, as many as Smets-Wouters' 70 kB tile
 // lets share an SM), 80 registers a thread; beyond, the wider innovation

@@ -333,6 +333,42 @@ def test_general_kalman_at_sw_shape_matches_host_build(dev):
     assert_sw_loglh_close(got, want)
 
 
+def _sw_pi_fg_system(dev, n=256, seed=4):
+    """n prior draws of models/sw_pi_fg.py (made on the CPU) and 4 within
+    1e-4 of its TRUE_PARAMS: its system (44 states, 14 shocks) on the
+    card."""
+    from smc_tpu_torch.models import sw_pi_fg
+    from smc_tpu_torch.params import ParamSpace
+    from smc_tpu_torch.rng import TorchDraws
+    th = ParamSpace(sw_pi_fg.sw_pi_fg_parameters()).sample_prior(
+        TorchDraws(seed, "cpu"), n, device="cpu")
+    near = sw_pi_fg.TRUE_PARAMS * (1.0 + 1e-4 * np.random.default_rng(1)
+                                   .standard_normal((4, th.shape[1])))
+    th = torch.cat([th, torch.as_tensor(near)]).to(dev)
+    return sw_pi_fg._system(th)
+
+
+@pytest.mark.parametrize("model", ["sw", "sw_pi_fg"])
+def test_general_re_matches_host_build(dev, model):
+    """The RE kernel at SW's (37, 7) and sw_pi_fg's (44, 14), the large
+    team's panel Gauss-Jordan, against its host build (the same block body
+    through g++, on the CPU): the same ok flags, X and M within 1e-12
+    normwise (the card's fused multiply-adds leave one of SW's 248 ok draws
+    1.2e-13 from the host build, the serial Gauss-Jordan's kernel as
+    well)."""
+    from torch_parity import normwise_rel
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    sys_t = _sw_inputs(dev)[0] if model == "sw" else _sw_pi_fg_system(dev)
+    X, M, ok = g.solve_linear_re(*sys_t)
+    hX, hM, hok = _host_build().re(
+        *(x.cpu().contiguous() for x in sys_t))
+    assert torch.equal(ok.cpu(), hok)
+    assert int(hok.sum()) > 100
+    for got, want in ((X, hX), (M, hM)):
+        assert normwise_rel(got.cpu()[..., hok], want[..., hok]).max() \
+            <= 1e-12
+
+
 @pytest.mark.parametrize("n_o", [2, 3, 5, 7, 16])
 @pytest.mark.parametrize("n_s", [12, 37])
 def test_general_kalman_across_n_obs_matches_host_build(dev, n_s, n_o):

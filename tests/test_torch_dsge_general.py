@@ -268,6 +268,16 @@ def _gj_serial(W, n):
     return pivots, W[:, n:]
 
 
+def _gj_host(body, W, n):
+    """(pivot rows, the solution columns) of the host build's Gauss-Jordan
+    on W [n, w]: the block that n_state n takes."""
+    got = np.ascontiguousarray(W)
+    piv = np.zeros(n, dtype=np.int32)
+    assert body.lib.smc_general_gj_cpu(
+        n, W.shape[1], got.ctypes.data, piv.ctypes.data) == 0
+    return piv.tolist(), got[:, n:]
+
+
 @pytest.mark.parametrize("n,w,seed", [(5, 10, 0), (16, 48, 1), (37, 111, 2),
                                       (64, 192, 3)])
 def test_tied_pivots_follow_the_serial_rule(body, n, w, seed):
@@ -285,14 +295,104 @@ def test_tied_pivots_follow_the_serial_rule(body, n, w, seed):
     want_piv, want = _gj_serial(W, n)
     if n == 64:
         assert want_piv[:2] == [10, 3]
-    got = np.ascontiguousarray(W)
-    piv = np.zeros(n, dtype=np.int32)
-    assert body.lib.smc_general_gj_cpu(
-        n, w, got.ctypes.data, piv.ctypes.data) == 0
-    assert piv.tolist() == want_piv
+    piv, got = _gj_host(body, W, n)
+    assert piv == want_piv
     assert sum(p != k for k, p in enumerate(want_piv)) > 0
     assert np.isfinite(want).all()
-    np.testing.assert_array_equal(got[:, n:], want)
+    np.testing.assert_array_equal(got, want)
+
+
+# (n, k, width, case): the large team's panels are 4 columns wide, so 17, 37
+# and 63 end inside a panel and 44 on a panel's edge; k for the width
+# 2n + k; the features need a second row in every lane (n > 40)
+_PANEL_CASES = [
+    (n, k, width, case)
+    for n, k in [(17, 8), (37, 7), (44, 14), (63, 7)]
+    for width in ["2n", "2n+k", "3n"]
+    for case in ["plain", "high_row", "lane_edge", "nan"]
+    if n > 40 or case in ("plain", "nan")]
+
+
+@pytest.mark.parametrize("n,k,width,case", _PANEL_CASES)
+def test_panel_pivots_follow_the_serial_rule(body, n, k, width, case):
+    """The large team's panels against the serial rule, bit for bit, pivot
+    rows included, at n 17, 37, 44 and 63 and the RE solve's widths. On entries in {-2, ..., 2}
+    ("plain"), and with one feature each: "high_row", step 0's pivot in
+    row 40 (lane 8's second row), then at step 1 a tie within lane 0
+    between row 32 and the row-0 item that step 0 moved to row 40 (row 32
+    wins, though it is the lane's second); "lane_edge", a tie at rows 31 and
+    32 (lane 31's first row, lane 0's second), then between the row-0
+    item now in row 31 and row 33; "nan", an all-NaN column inside the
+    last panel (that step and every later one keep p = k)."""
+    w = {"2n": 2 * n, "2n+k": 2 * n + k, "3n": 3 * n}[width]
+    rng = np.random.default_rng(1000 * n + w)
+    W = rng.integers(-2, 3, size=(n, w)).astype(np.float64)
+    if case == "high_row":
+        W[:, 0] = 1.0
+        W[40, 0], W[40, 1] = 9.0, 0.0  # column 1 untouched by step 0
+        W[0, 1], W[32, 1] = 9.0, -9.0
+        first = [40, 32]
+    elif case == "lane_edge":
+        W[:, 0] = 1.0
+        W[31, 0], W[32, 0], W[31, 1] = -9.0, 9.0, 0.0
+        W[0, 1], W[33, 1] = -9.0, 9.0
+        first = [31, 31]
+    elif case == "nan":
+        W[:, n - 3] = np.nan
+        first = None
+    else:
+        first = None
+    want_piv, want = _gj_serial(W, n)
+    if first is not None:
+        assert want_piv[:2] == first
+    piv, got = _gj_host(body, W, n)
+    assert piv == want_piv
+    assert sum(p != i for i, p in enumerate(want_piv)) > 0
+    if case == "nan":
+        assert want_piv[n - 3:] == [n - 3, n - 2, n - 1]
+        assert np.isnan(want).all()
+    else:
+        assert np.isfinite(want).all()
+    np.testing.assert_array_equal(got, want)
+
+
+def _quot_pairs(kind, rng, m=200_000):
+    """(a, b) pairs of one kind for test_kernel_division_is_ieee."""
+    def doubles(lo, hi):
+        return np.ldexp(rng.uniform(1.0, 2.0, m) * rng.choice([-1.0, 1.0], m),
+                        rng.integers(lo, hi, m))
+    if kind == "ordinary":      # the exponents of the RE solve's entries
+        return doubles(-60, 60), doubles(-60, 60)
+    if kind == "any_exponent":  # under- and overflow, subnormals
+        return doubles(-1100, 1024), doubles(-1100, 1024)
+    if kind == "integers":      # exact quotients and ties in |a|
+        return (rng.integers(-40, 41, m).astype(np.float64),
+                rng.integers(-9, 10, m).astype(np.float64))
+    if kind == "near_one":      # quotients at and around powers of 2
+        b = doubles(-3, 3)
+        k = rng.integers(-3, 4, m).astype(np.float64)
+        return np.ldexp(b, rng.integers(-2, 3, m)) * (1.0 + k * 2.0 ** -52), b
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0,
+                         5e-324, -5e-324, 2.2250738585072014e-308,
+                         1.7976931348623157e308, 2.0 ** -480, 2.0 ** 480,
+                         1.0 - 2.0 ** -53, 1.0 + 2.0 ** -52, 3.0, 0.1])
+    a, b = np.meshgrid(specials, specials)
+    return a.ravel(), b.ravel()
+
+
+@pytest.mark.parametrize("kind", ["ordinary", "any_exponent", "integers",
+                                  "near_one", "specials"])
+def test_kernel_division_is_ieee(body, kind):
+    """The kernels' division (quot: a zero dividend by the signs, else the
+    division) gives IEEE's quotient, bit for bit, NaN included."""
+    a, b = _quot_pairs(kind, np.random.default_rng(7))
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    q = np.empty_like(a)
+    assert body.lib.smc_general_quot_cpu(a.ctypes.data, b.ctypes.data,
+                                         q.ctypes.data, a.size) == 0
+    with np.errstate(all="ignore"):
+        want = a / b
+    np.testing.assert_array_equal(q.view(np.uint64), want.view(np.uint64))
 
 
 @pytest.mark.parametrize("n_s,n_k,n_o,n_t", [

@@ -3,7 +3,7 @@
 (other, this, this, other) on one card.
 
     python3 tests/torch_general_turns.py --other DIR
-        [--shape sw|as2|swpifg|swpifg-post|NS,NK,NO] [--out FILE]
+        [--shape sw|sw-post|as2|swpifg|swpifg-post|NS,NK,NO] [--out FILE]
 
 DIR holds a dsge_general_kernels.cu with this checkout's C interface
 (smc_general_prepare, smc_general_re, smc_general_kalman): a copy of
@@ -13,13 +13,14 @@ checkout's flags for the library (tests/torch_turns.py); this checkout's
 library through smc_tpu_torch._build. Both are launched through the same
 bare ctypes calls on outputs allocated once, on chip_smoke.py's inputs:
 "sw" (the default) its general phase's SW_N_PARTS Smets-Wouters prior
-draws, "as2" AS_N_PARTS AS-2obs prior draws, "swpifg" SW_N_PARTS prior
-draws of models/sw_pi_fg.py (44 states, 14 observables: the Kalman kernel
-on rows of 16), "swpifg-post" as many draws from the normal of
-perfbench/posteriors/sw_pi_fg.json's posterior means and standard
+draws, "sw-post" as many draws from the normal of
+perfbench/posteriors/smets_wouters.json's posterior means and standard
 deviations, each parameter clamped to its prior's bounds (the clouds the
-benchmark's swpifg-4k-fixed filters in its later stages, without their
-correlations), or GEN_N synthetic systems at (n_state, n_shock, n_obs).
+benchmark's SW cells filter in their later stages, without their
+correlations), "as2" AS_N_PARTS AS-2obs prior draws, "swpifg" SW_N_PARTS
+prior draws of models/sw_pi_fg.py (44 states, 14 observables: the Kalman
+kernel on rows of 16), "swpifg-post" its posterior table's draws as
+"sw-post", or GEN_N synthetic systems at (n_state, n_shock, n_obs).
 sw_pi_fg's Z holds its expectation rows, filled once from this checkout's
 RE and expectation-rows kernels. Each turn times the RE solve and the Kalman
 filter back to back (chip_smoke.cuda_ms) and from a CUDA graph
@@ -93,6 +94,13 @@ def inputs_for(shape: str, dev):
     from smc_tpu_torch.models import as_dsge, sw_dsge
     from smc_tpu_torch.params import ParamSpace
     from smc_tpu_torch.rng import TorchDraws
+    if shape == "sw-post":
+        th = posterior_draws("smets_wouters",
+                             ParamSpace(sw_dsge.sw_parameters()), dev)
+        d, Z, H = sw_dsge._measurement(th)
+        return (*sw_dsge._system(th), sw_dsge._shock_cov(th), Z, d, H,
+                torch.as_tensor(sw_dsge.load_sw_data(), device=dev)
+                .contiguous())
     if shape in ("sw", "as2"):
         mod, params, meas, data, n, seed = (
             (sw_dsge, sw_dsge.sw_parameters(), sw_dsge._measurement,
@@ -113,6 +121,23 @@ def inputs_for(shape: str, dev):
     return tuple(torch.as_tensor(x, device=dev) for x in (*sys_np, data))
 
 
+def posterior_draws(config: str, space, dev):
+    """SW_N_PARTS draws from the normal of perfbench/posteriors/<config>.json's
+    posterior means and standard deviations, each parameter clamped to its
+    prior's bounds."""
+    import torch
+    import chip_smoke
+    with open(ROOT / "perfbench" / "posteriors" / f"{config}.json") as f:
+        table = json.load(f)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    mean, sd = (torch.as_tensor(table[k], device=dev) for k in ("mean", "sd"))
+    th = mean + sd * torch.randn((chip_smoke.SW_N_PARTS, mean.numel()),
+                                 generator=gen, dtype=mean.dtype, device=dev)
+    return torch.minimum(torch.maximum(
+        th, torch.as_tensor(space.lo, device=dev)),
+        torch.as_tensor(space.hi, device=dev))
+
+
 def sw_pi_fg_inputs(shape: str, dev):
     """sw_pi_fg's A, B, C, D, Q, Z, d, H, data at its prior draws
     ("swpifg") or at draws from its posterior table ("swpifg-post"), Z's
@@ -128,16 +153,7 @@ def sw_pi_fg_inputs(shape: str, dev):
     if shape == "swpifg":
         th = space.sample_prior(TorchDraws(2, dev), n, device=dev)
     else:
-        with open(ROOT / "perfbench" / "posteriors" / "sw_pi_fg.json") as f:
-            table = json.load(f)
-        gen = torch.Generator(device=dev).manual_seed(2)
-        mean, sd = (torch.as_tensor(table[k], device=dev)
-                    for k in ("mean", "sd"))
-        th = mean + sd * torch.randn((n, mean.numel()), generator=gen,
-                                     dtype=mean.dtype, device=dev)
-        th = torch.minimum(torch.maximum(
-            th, torch.as_tensor(space.lo, device=dev)),
-            torch.as_tensor(space.hi, device=dev))
+        th = posterior_draws("sw_pi_fg", space, dev)
     A, B, C, D = fg._system(th)
     d, Z, H = fg._measurement(th)
     X, _, ok = g.solve_linear_re(A, B, C, D)
@@ -150,8 +166,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--shape", default="sw",
-                    help="sw, as2, swpifg, swpifg-post or n_state,n_shock,"
-                         "n_obs (default sw)")
+                    help="sw, sw-post, as2, swpifg, swpifg-post or "
+                         "n_state,n_shock,n_obs (default sw)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)

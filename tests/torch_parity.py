@@ -184,6 +184,8 @@ class GeneralHostBuild:
         lib.smc_general_gj_cpu.restype = I
         lib.smc_general_psd_cpu.argtypes = [I, I, P, P, P, P, L]
         lib.smc_general_psd_cpu.restype = I
+        lib.smc_general_quot_cpu.argtypes = [P, P, P, L]
+        lib.smc_general_quot_cpu.restype = I
         self.lib = lib
 
     def re(self, A, B, C, D):
