@@ -610,7 +610,7 @@ def shape_phase(dev, ptxas):
     from torch_parity import normwise_rel, synthetic_model, synthetic_system
     from smc_tpu_torch.models.dsge import (bl_solve_linear_re,
                                            bl_kalman_loglike_chandrasekhar)
-    from smc_tpu_torch.ops import cuda_dsge
+    from smc_tpu_torch.ops import cuda_dsge, kernels
 
     entries = []
     worst = dict(agree=1.0, xm=0.0, ll=0.0, tail=0.0)
@@ -622,7 +622,7 @@ def shape_phase(dev, ptxas):
         _reset_launches()
         ll_model = model.loglike_batched(th, data_np)
         torch.cuda.synchronize()
-        launches = dict(cuda_dsge.LAUNCHES)
+        launches = _launches("re", "kalman")
         if launches != {"re": 1, "kalman": 1}:
             raise RuntimeError(f"({n_s}, {n_k}): the model's likelihood "
                                f"made launches {launches}, not one of each")
@@ -721,8 +721,8 @@ def shape_phase(dev, ptxas):
     # (ops/cuda_dsge.py kalman_smem_bytes) against the library's
     off = [(n_s, n_t) for n_s in sorted({s for s, _ in cuda_dsge.SIZES})
            for n_t in (0, 80, 7936, 9301)
-           if cuda_dsge._library(dev, n_s).smc_kalman_smem_bytes(n_s, n_t)
-           != cuda_dsge.kalman_smem_bytes(n_s, n_t)]
+           if kernels.load(f"dsge_ns{n_s}", dev).smc_kalman_smem_bytes(
+               n_s, n_t) != cuda_dsge.kalman_smem_bytes(n_s, n_t)]
     print(f"# shapes: the route's Kalman shared-memory sizes differ from "
           f"the libraries' at {off}")
     if off:
@@ -1057,7 +1057,6 @@ def as_runner(dev):
 def main_path(dev):
     import numpy as np
     from smc_tpu_torch.models import as_dsge
-    from smc_tpu_torch.ops import cuda_dsge, cuda_eigh
 
     run = as_runner(dev)
     # a 2-stage run first pays the process's one-time costs (CUDA module
@@ -1066,14 +1065,14 @@ def main_path(dev):
     print(f"# warm-up (2 stages, first use in this process) {wall:.4f} s")
     _reset_launches()
     res, wall = _timed(lambda: run(seed=0))
-    launches = dict(cuda_dsge.LAUNCHES, **cuda_eigh.LAUNCHES)
+    launches = _launches("re", "kalman", "eigh")
     n_stages = len(res.cloud.tempering_schedule) - 1
     expected = 1 + res.init_rounds + n_stages
     print(f"# AS estimation: {n_stages} stages, {res.init_rounds} redraw "
           f"rounds, launches {launches} (expected {expected} of re and "
           f"kalman, {n_stages} of eigh: one block, one MH step)")
     if n_stages != AS_N_PHI - 1 or any(launches[k] != expected
-                                       for k in cuda_dsge.LAUNCHES):
+                                       for k in ("re", "kalman")):
         raise RuntimeError("the main path did not go through the kernels "
                            "once per likelihood call")
     if launches["eigh"] != n_stages:
@@ -1109,8 +1108,7 @@ def _loop_kind(res) -> str:
 
 def _eigh_launch_gate(name, n_stages, n_blocks):
     """One eigh launch per stage, whatever the number of blocks."""
-    from smc_tpu_torch.ops import cuda_eigh
-    n = cuda_eigh.LAUNCHES["eigh"]
+    n = _launches("eigh")["eigh"]
     print(f"# {name}: {n} eigh launches for {n_stages} stages of "
           f"{n_blocks} blocks (one per stage)")
     if n != n_stages:
@@ -1120,14 +1118,14 @@ def _eigh_launch_gate(name, n_stages, n_blocks):
 
 
 def _reset_launches():
-    from smc_tpu_torch.ops import (cuda_dsge, cuda_dsge_expectations,
-                                   cuda_dsge_general, cuda_eigh,
-                                   cuda_metropolis)
-    for counts in (cuda_dsge.LAUNCHES, cuda_dsge_general.LAUNCHES,
-                   cuda_dsge_expectations.LAUNCHES, cuda_eigh.LAUNCHES,
-                   cuda_metropolis.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    from smc_tpu_torch.ops.kernels import LAUNCHES
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+
+
+def _launches(*keys) -> dict:
+    """{key: launches} of the kernels' launch registry, for `keys`."""
+    from smc_tpu_torch.ops.kernels import LAUNCHES
+    return {k: LAUNCHES[k] for k in keys}
 
 
 def _timed(run):
@@ -1198,14 +1196,13 @@ def adaptive_phase(dev):
     import numpy as np
     import torch
     from smc_tpu_torch.models import as_dsge
-    from smc_tpu_torch.ops import cuda_dsge
     from smc_tpu_torch.ops.schedule import solve_adaptive_phi, fixed_schedule
     from smc_tpu_torch.smc import LOOKAHEAD
 
     run = as_runner(dev)
     _reset_launches()
     res, wall = _timed(lambda: run(seed=0, **ADAPTIVE))
-    launches = dict(cuda_dsge.LAUNCHES)
+    launches = _launches("re", "kalman")
     sched = np.asarray(res.cloud.tempering_schedule)
     n_stages = len(sched) - 1
     # a masked stage (a replay past phi = 1) launches the kernels too
@@ -1262,13 +1259,12 @@ def metropolis_phase(dev, lin):
     run, its wall time and the chain's launches."""
     import smc_tpu_torch
     from smc_tpu_torch.models.linear import linear_parameters
-    from smc_tpu_torch.ops import cuda_metropolis
     data, _, ll, exact = lin
     _reset_launches()
     res, wall = _timed(lambda: smc_tpu_torch.smc(
         ll, linear_parameters(), data, **METROPOLIS_CONFIG, seed=0,
         device=dev))
-    launches = cuda_metropolis.LAUNCHES["metropolis"]
+    launches = _launches("metropolis")["metropolis"]
     n_stages = len(res.cloud.tempering_schedule) - 1
     _linear_gates("(c) metropolis", res, exact, band=False)
     capped = [b for b in res.chain_lengths if b > 10_000]
@@ -1551,9 +1547,9 @@ def sw_call_stats(dev, model, data):
     call()
     host_ms = 1e3 * (time.perf_counter() - t0)
     torch.cuda.synchronize()
-    before = dict(g.LAUNCHES)
+    before = _launches("re_general", "kalman_general")
     launches = launches_of(call)
-    counted = {k: v - before[k] for k, v in g.LAUNCHES.items()}
+    counted = {k: v - before[k] for k, v in _launches(*before).items()}
     plain_ms = once_ms(plain)
     plain_launches = launches_of(plain)
     ns, nk, no, n_t = sw_dsge.N_STATE, sw_dsge.N_SHOCK, sw_dsge.N_OBS, \
@@ -1647,19 +1643,18 @@ def sw_phase(dev):
     import numpy as np
     import torch
     from smc_tpu_torch.models import sw_dsge
-    from smc_tpu_torch.ops import cuda_dsge, cuda_dsge_general
     model, data, run = sw_runner(dev)
     _, wall = _timed(lambda: run(n_phi=3, seed=1))
     print(f"# (f) warm-up (2 stages) {wall:.4f} s")
     _reset_launches()
     res, wall = _timed(lambda: run(seed=0))
-    launches = dict(cuda_dsge_general.LAUNCHES)
+    launches = _launches("re_general", "kalman_general")
     sched = np.asarray(res.cloud.tempering_schedule)
     sw_gates(f"(f) SW-{SW_N_PARTS}", res)
     # one likelihood call per block per stage, masked stages too
     expected = (1 + res.init_rounds + (len(sched) - 1 + res.masked_stages)
                 * SW_CONFIG["n_blocks"])
-    print(f"# (f) kernel launches {dict(cuda_dsge.LAUNCHES)}, general "
+    print(f"# (f) kernel launches {_launches('re', 'kalman')}, general "
           f"{launches} (expected {expected} each: 1 + {res.init_rounds} "
           f"redraw rounds + {SW_CONFIG['n_blocks']} a stage)")
     if any(v != expected for v in launches.values()):
@@ -1846,7 +1841,7 @@ def sw_pi_fg_phase(dev, ptxas):
     print(f"# (l) warm-up (2 stages) {wall:.4f} s")
     _reset_launches()
     res, wall = _timed(lambda: run(seed=0))
-    launches = dict(g.LAUNCHES, **ce.LAUNCHES)
+    launches = _launches("re_general", "kalman_general", "expectation_rows")
     sched = np.asarray(res.cloud.tempering_schedule)
     sw_gates(f"(l) sw_pi_fg-{SW_N_PARTS}", res, fg)
     expected = (1 + res.init_rounds + (len(sched) - 1 + res.masked_stages)
@@ -1873,9 +1868,9 @@ def sw_pi_fg_phase(dev, ptxas):
     d, Z, H = fg._measurement(th)
     Q = fg._shock_cov(th)
     X, M, ok = g.solve_linear_re(A, B, C, D)
-    before = ce.LAUNCHES["expectation_rows"]
+    before = _launches("expectation_rows")["expectation_rows"]
     out = ce.expectation_rows(Z, X, ok, rows)
-    if ce.LAUNCHES["expectation_rows"] != before + 1:
+    if _launches("expectation_rows")["expectation_rows"] != before + 1:
         raise RuntimeError("(l) the expectation rows were not one launch")
     plain = bl_expectation_rows(Z, X, rows, ok)
     torch.cuda.synchronize()
@@ -1902,10 +1897,9 @@ def sw_pi_fg_phase(dev, ptxas):
         raise RuntimeError("(l) the expectation-rows kernel disagrees with "
                            "its plain version")
 
-    before = dict(g.LAUNCHES, **ce.LAUNCHES)
+    before = _launches("re_general", "kalman_general", "expectation_rows")
     got = model.loglike_batched(th, data)
-    counted = {k: v - before[k] for k, v in dict(g.LAUNCHES,
-                                                 **ce.LAUNCHES).items()}
+    counted = {k: v - before[k] for k, v in _launches(*before).items()}
     want = bl_dsge_loglike(A, B, C, D, Q, Z, d, H, y, expectation_rows=rows)
     okp = bl_solve_linear_re(A, B, C, D)[2]
     agree = (ok == okp).double().mean().item()
@@ -1964,7 +1958,6 @@ def as2obs_phase(dev):
     import smc_tpu_torch
     from torch_parity import TAIL_RTOL
     from smc_tpu_torch.models import as_dsge
-    from smc_tpu_torch.ops import cuda_dsge_general
     model, data = as_dsge.an_schorfheide_2obs(), as_dsge.load_as_data()[:2]
     run = lambda **kw: smc_tpu_torch.smc(
         model.loglike_batched, as_dsge.an_schorfheide_parameters(), data,
@@ -1972,7 +1965,7 @@ def as2obs_phase(dev):
     _timed(lambda: run(n_phi=3, seed=1))
     _reset_launches()
     res, wall = _timed(lambda: run(seed=0))
-    launches = dict(cuda_dsge_general.LAUNCHES)
+    launches = _launches("re_general", "kalman_general")
     expected = (1 + res.init_rounds + len(res.cloud.tempering_schedule) - 1
                 + res.masked_stages)
     mu, sd = res.posterior_mean(), res.posterior_std()
@@ -2194,7 +2187,6 @@ def examples_phase(dev):
     import io
     import tempfile
     import numpy as np
-    from smc_tpu_torch.ops import cuda_dsge
     quiet = lambda: contextlib.redirect_stdout(io.StringIO())
     cwd, sw_data = os.getcwd(), os.environ.pop("SW_REAL_DATA", None)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2245,11 +2237,10 @@ def examples_phase(dev):
                 if script == "estimate_as_dsge.py":
                     n_calls = (1 + res.init_rounds
                                + len(res.cloud.tempering_schedule) - 1)
-                    print(f"# (k) {script}: kernel launches "
-                          f"{dict(cuda_dsge.LAUNCHES)} ({n_calls} "
-                          "likelihood calls)")
-                    if any(cuda_dsge.LAUNCHES[k] != n_calls
-                           for k in cuda_dsge.LAUNCHES):
+                    launches = _launches("re", "kalman")
+                    print(f"# (k) {script}: kernel launches {launches} "
+                          f"({n_calls} likelihood calls)")
+                    if any(v != n_calls for v in launches.values()):
                         raise RuntimeError(f"(k) {script}: the likelihood "
                                            "did not go through the kernels")
         finally:
@@ -2284,7 +2275,6 @@ def _mesh_rank(rank, world, backend, device, store, out):
     import numpy as np
     import torch
     import torch.distributed as dist
-    from smc_tpu_torch.ops import cuda_dsge
     from smc_tpu_torch.parallel import initialize_multihost, particle_mesh
     dev = torch.device(device.format(rank=rank))
     initialize_multihost(num_processes=world, process_id=rank,
@@ -2301,7 +2291,7 @@ def _mesh_rank(rank, world, backend, device, store, out):
         res = run(seed=0, mesh=mesh)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-        launches = dict(cuda_dsge.LAUNCHES)
+        launches = _launches("re", "kalman")
         adaptive = {}
         if backend == "nccl":
             ad = run(seed=0, mesh=mesh, **ADAPTIVE)
@@ -2413,7 +2403,6 @@ def mesh_phase(dev, res_as, wall_as):
     import numpy as np
     import torch
     import torch.distributed as dist
-    from smc_tpu_torch.ops import cuda_dsge
     from smc_tpu_torch.parallel import initialize_multihost, particle_mesh
 
     run = as_runner(dev)
@@ -2426,7 +2415,7 @@ def mesh_phase(dev, res_as, wall_as):
             run(n_phi=3, seed=1, mesh=mesh)     # warm-up, as the main path's
             _reset_launches()
             res, wall = _timed(lambda: run(seed=0, mesh=mesh))
-            launches = dict(cuda_dsge.LAUNCHES)
+            launches = _launches("re", "kalman")
             host, wall_host = _timed(lambda: run(seed=0, mesh=mesh,
                                                  fused=False))
         finally:
@@ -2618,9 +2607,9 @@ def _batched_gates(name, mats):
     largest eigenvalue error."""
     import torch
     from smc_tpu_torch.ops import cuda_eigh
-    before = cuda_eigh.LAUNCHES["eigh"]
+    before = _launches("eigh")["eigh"]
     out = cuda_eigh.eigh_batched(_block_stacks(mats))
-    if cuda_eigh.LAUNCHES["eigh"] != before + 1:
+    if _launches("eigh")["eigh"] != before + 1:
         raise RuntimeError(f"(j) eigh {name}: not one launch")
     got = [(lam[i], u[i]) for lam, u in out for i in range(lam.shape[0])]
     err = 0.0

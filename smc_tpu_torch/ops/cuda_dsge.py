@@ -10,10 +10,8 @@ The kernels' domain is the TPU kernels': n_obs == 3, 1 <= n_state <= 8,
 version (models/dsge.py `bl_*`); a CUDA tensor launches the kernel, or
 raises. Shapes outside the domain raise ValueError on every device. There
 is no fallback. The card's kernels come in one library per n_state
-(csrc/dsge_sizes.cuh), built by nvcc at its first use.
-`LAUNCHES` counts kernel launches, one per call that reaches the GPU. A
-call inside a CUDA graph capture launches nothing; smc()'s fused recursion
-adds the captured launches to `LAUNCHES` once per replay.
+(csrc/dsge_sizes.cuh), built by nvcc at its first use and launched through
+ops/kernels.py, which counts them under "re" and "kalman".
 
 The kernels (csrc/dsge_kernels.cu, bodies in csrc/dsge_particle.cuh) run
 in native f64 with a group of G lanes per particle: G = 8 for the RE solve,
@@ -47,15 +45,12 @@ the measured times.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from smc_tpu_torch import _build
 from smc_tpu_torch.models.dsge import (bl_solve_linear_re,
                                        bl_kalman_loglike_chandrasekhar)
-
-LAUNCHES = {"re": 0, "kalman": 0}
+from smc_tpu_torch.ops.kernels import check, cuda_device, launch, load
 
 # (n_state, n_shock) pairs the kernels are instantiated for: the domain of
 # the TPU kernels they replace (smc_tpu/ops/pallas_dsge.py), n_obs 3, as
@@ -64,8 +59,8 @@ MAX_STATE = MAX_SHOCK = _build.DSGE_MAX_DIM
 SIZES = tuple((s, k) for s in range(1, MAX_STATE + 1)
               for k in range(1, MAX_SHOCK + 1))
 N_OBS = 3
-# dynamic shared memory a block may use on Hopper (the launcher raises the
-# kernel's limit above the default 48 KB when it needs to)
+# dynamic shared memory a block may use on Hopper (the library's prepare
+# call raises the kernels' limit to it, above the default 48 KB)
 _MAX_SMEM = _build.SMEM_LIMIT
 # csrc/dsge_kernels.cu: warps per block; csrc/dsge_particle.cuh: the Kalman
 # filter's lanes per particle
@@ -88,58 +83,6 @@ def in_domain(n_s: int, n_k: int, n_o: int, n_t: int) -> bool:
     return ((n_s, n_k) in SIZES and n_o == N_OBS and n_t >= 0
             and kalman_smem_bytes(n_s, n_t) <= _MAX_SMEM)
 
-_libs = {}          # n_state -> library
-_prepared = set()   # (n_state, device index)
-
-
-def _library(device: torch.device, n_s: int):
-    """The kernel library of n_state n_s, built and loaded at its first use;
-    every kernel's shared-memory limit raised to _MAX_SMEM once per device,
-    before its first launch (so no launch, and none inside a CUDA graph
-    capture, sets an attribute)."""
-    lib = _libs.get(n_s)
-    if lib is None:
-        lib = ctypes.CDLL(str(_build.build_cuda_library(f"dsge_ns{n_s}")))
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.smc_re_solve.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
-                                     ctypes.c_double, P]
-        lib.smc_re_solve.restype = I
-        lib.smc_kalman.argtypes = [I, I, P, P, P, P, P, P, P, I, P, L, I, P,
-                                   P]
-        lib.smc_kalman.restype = I
-        lib.smc_kalman_smem_bytes.argtypes = [I, I]
-        lib.smc_kalman_smem_bytes.restype = L
-        lib.smc_dsge_prepare.argtypes = [I]
-        lib.smc_dsge_prepare.restype = I
-        _libs[n_s] = lib
-    if (n_s, device.index) not in _prepared:
-        with torch.cuda.device(device):
-            rc = lib.smc_dsge_prepare(_MAX_SMEM)
-        if rc != 0:
-            raise RuntimeError(f"DSGE kernel set-up failed (CUDA error {rc})")
-        _prepared.add((n_s, device.index))
-    return lib
-
-
-def _check(name, t, shape, device, dtype=torch.float64):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _cuda_device(t: torch.Tensor) -> torch.device:
-    if t.device.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {t.device}")
-    return t.device
-
 
 def _sizes(n_s, n_k, n_o=N_OBS):
     """Raise ValueError, whatever the device, for shapes without a kernel:
@@ -153,11 +96,6 @@ def _sizes(n_s, n_k, n_o=N_OBS):
                          f"{n_o}")
 
 
-def _raise_on(rc, what):
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed (CUDA error {rc})")
-
-
 def solve_linear_re(A, B, C, D, n_iter: int = 16, tol: float = 1e-8):
     """A/B/C [n,n,N], D [n,k,N] f64 -> (X [n,n,N], M [n,k,N], ok bool [N]).
     The kernel exits cyclic reduction per particle at convergence; the plain
@@ -167,23 +105,18 @@ def solve_linear_re(A, B, C, D, n_iter: int = 16, tol: float = 1e-8):
     _sizes(n_s, n_k)
     if A.device.type == "cpu":
         return bl_solve_linear_re(A, B, C, D, n_iter=n_iter, tol=tol)
-    dev = _cuda_device(A)
+    dev = cuda_device(A)
     for name, t in (("A", A), ("B", B), ("C", C)):
-        _check(name, t, (n_s, n_s, n), dev)
-    _check("D", D, (n_s, n_k, n), dev)
+        check(name, t, (n_s, n_s, n), dev)
+    check("D", D, (n_s, n_k, n), dev)
     X = torch.empty((n_s, n_s, n), dtype=torch.float64, device=dev)
     M = torch.empty((n_s, n_k, n), dtype=torch.float64, device=dev)
     ok = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return X, M, ok
-    lib = _library(dev, n_s)
-    with torch.cuda.device(dev):
-        rc = lib.smc_re_solve(
-            n_s, n_k, A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
-            X.data_ptr(), M.data_ptr(), ok.data_ptr(), n, int(n_iter),
-            float(tol), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "RE solve")
-    LAUNCHES["re"] += 1
+    launch(f"dsge_ns{n_s}", "smc_re_solve", dev, n_s, n_k, A.data_ptr(),
+           B.data_ptr(), C.data_ptr(), D.data_ptr(), X.data_ptr(),
+           M.data_ptr(), ok.data_ptr(), n, int(n_iter), float(tol))
     return X, M, ok
 
 
@@ -199,32 +132,29 @@ def kalman_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H, data, ok=None,
         ll = bl_kalman_loglike_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H,
                                              data)
         return ll if ok is None else torch.where(ok, ll, float("-inf"))
-    dev = _cuda_device(T_mat)
+    dev = cuda_device(T_mat)
     n_t = data.shape[-1]
-    _check("T", T_mat, (n_s, n_s, n), dev)
-    _check("R", R_mat, (n_s, n_k, n), dev)
-    _check("Q", Q, (n_k, n_k, n), dev)
-    _check("Z", Z, (N_OBS, n_s, n), dev)
-    _check("d_obs", d_obs, (N_OBS, n), dev)
-    _check("H", H, (N_OBS, N_OBS, n), dev)
-    _check("data", data, (N_OBS, n_t), dev)
+    check("T", T_mat, (n_s, n_s, n), dev)
+    check("R", R_mat, (n_s, n_k, n), dev)
+    check("Q", Q, (n_k, n_k, n), dev)
+    check("Z", Z, (N_OBS, n_s, n), dev)
+    check("d_obs", d_obs, (N_OBS, n), dev)
+    check("H", H, (N_OBS, N_OBS, n), dev)
+    check("data", data, (N_OBS, n_t), dev)
     if ok is not None:
-        _check("ok", ok, (n,), dev, torch.bool)
+        check("ok", ok, (n,), dev, torch.bool)
     out = torch.empty(n, dtype=torch.float64, device=dev)
     if n == 0:
         return out
-    lib = _library(dev, n_s)
-    if lib.smc_kalman_smem_bytes(n_s, n_t) > _MAX_SMEM:
+    name = f"dsge_ns{n_s}"
+    if load(name, dev).smc_kalman_smem_bytes(n_s, n_t) > _MAX_SMEM:
         raise ValueError(f"T={n_t} observations and the group tiles do not "
                          "fit the kernel's shared memory")
-    with torch.cuda.device(dev):
-        rc = lib.smc_kalman(
-            n_s, n_k, T_mat.data_ptr(), R_mat.data_ptr(), Q.data_ptr(),
-            Z.data_ptr(), d_obs.data_ptr(), H.data_ptr(), data.data_ptr(),
-            n_t, None if ok is None else ok.data_ptr(), n, int(lyap_iter),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "Kalman")
-    LAUNCHES["kalman"] += 1
+    launch(name, "smc_kalman", dev, n_s, n_k, T_mat.data_ptr(),
+           R_mat.data_ptr(), Q.data_ptr(), Z.data_ptr(), d_obs.data_ptr(),
+           H.data_ptr(), data.data_ptr(), n_t,
+           None if ok is None else ok.data_ptr(), n, int(lyap_iter),
+           out.data_ptr())
     return out
 
 

@@ -14,11 +14,10 @@ Dispatch, as the other wrappers: a CPU tensor runs the plain version; a
 CUDA tensor launches the kernel, or raises; shapes or rows outside the
 domain raise ValueError on every device. There is no fallback. Its
 library, `dsge_expectations`, is built apart from the general kernels', so
-a model without expectation rows neither builds nor loads it.
-`LAUNCHES["expectation_rows"]` counts kernel launches, one per call that
-reaches the GPU; smc()'s fused recursion adds the captured launches once
-per replay. The wrapper reads nothing back from the card and sets no
-attribute (the tile fits a block's default shared memory), so the fused
+a model without expectation rows neither builds nor loads it. The kernel
+launches through ops/kernels.py, which counts it under
+"expectation_rows". The wrapper reads nothing back from the card and sets
+no attribute (the tile fits a block's default shared memory), so the fused
 recursion captures it: the rows go to the kernel by value.
 
 The kernel (csrc/dsge_expectations.cu, body in csrc/dsge_expectations.cuh)
@@ -38,9 +37,9 @@ import torch
 from smc_tpu_torch import _build
 from smc_tpu_torch.models.dsge import (bl_expectation_rows,
                                        check_expectation_rows)
-from smc_tpu_torch.ops.cuda_dsge import _check, _cuda_device, _raise_on
+from smc_tpu_torch.ops.kernels import check, cuda_device, launch, load
 
-LAUNCHES = {"expectation_rows": 0}
+_LIB = "dsge_expectations"
 
 # csrc/dsge_expectations.cuh: a thread per column, n_obs as the general
 # kernels take it
@@ -57,22 +56,6 @@ def smem_bytes(n_s: int, n_rows: int) -> int:
 def in_domain(n_s: int, n_o: int) -> bool:
     """Whether the kernel takes a model of these shapes."""
     return 1 <= n_s <= MAX_STATE and 2 <= n_o <= MAX_OBS
-
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(_build.build_cuda_library("dsge_expectations")))
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.smc_expectation_rows.argtypes = [I, I, I, P, P, P, P, P, L, P]
-        lib.smc_expectation_rows.restype = I
-        lib.smc_expectation_smem.argtypes = [I, I]
-        lib.smc_expectation_smem.restype = L
-        _lib = lib
-    return _lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,23 +78,18 @@ def expectation_rows(Z, X, ok, rows):
             f"n_obs <= {MAX_OBS} and at least one row")
     if Z.device.type == "cpu":
         return bl_expectation_rows(Z, X, rows, ok)
-    dev = _cuda_device(Z)
-    _check("Z", Z, (n_o, n_s, n), dev)
-    _check("X", X, (n_s, n_s, n), dev)
-    _check("ok", ok, (n,), dev, torch.bool)
+    dev = cuda_device(Z)
+    check("Z", Z, (n_o, n_s, n), dev)
+    check("X", X, (n_s, n_s, n), dev)
+    check("ok", ok, (n,), dev, torch.bool)
     out = torch.empty_like(Z)
     if n == 0:
         return out
-    lib = _library()
-    if lib.smc_expectation_smem(n_s, len(rows)) != smem_bytes(n_s,
-                                                             len(rows)):
+    if load(_LIB, dev).smc_expectation_smem(n_s, len(rows)) != smem_bytes(
+            n_s, len(rows)):
         raise RuntimeError("expectation rows: the library's tile is not the "
                            "wrapper's")
-    with torch.cuda.device(dev):
-        rc = lib.smc_expectation_rows(
-            n_s, n_o, len(rows), _spec(rows), Z.data_ptr(), X.data_ptr(),
-            ok.data_ptr(), out.data_ptr(), n,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "expectation rows")
-    LAUNCHES["expectation_rows"] += 1
+    launch(_LIB, "smc_expectation_rows", dev, n_s, n_o, len(rows),
+           _spec(rows), Z.data_ptr(), X.data_ptr(), ok.data_ptr(),
+           out.data_ptr(), n)
     return out

@@ -16,12 +16,10 @@ the T observations, within a block's shared memory (_build.SMEM_LIMIT,
 also passed to the compiler). Dispatch, as ops/cuda_dsge.py:
 a CPU tensor runs the plain PyTorch version; a CUDA tensor launches the
 kernel, or raises. Shapes outside the domain raise ValueError on every
-device. There is no fallback. `LAUNCHES` counts kernel launches, one per
-call that reaches the GPU; a call inside a CUDA graph capture launches
-nothing, and smc()'s fused recursion adds the captured launches to
-`LAUNCHES` once per replay. The wrappers read nothing back from the card
-and set no attribute after the first call on a device, so the fused
-recursion captures them.
+device. There is no fallback. The kernels launch through ops/kernels.py,
+which counts them under "re_general" and "kalman_general". The wrappers
+read nothing back from the card and set no attribute after the first call
+on a device, so the fused recursion captures them.
 
 The kernels (csrc/dsge_general_kernels.cu, bodies in
 csrc/dsge_general.cuh) run one block per particle with the particle's
@@ -37,18 +35,16 @@ PERF.md holds the measured times.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from smc_tpu_torch import _build
 from smc_tpu_torch.models.dsge import (bl_solve_linear_re,
                                        bl_kalman_loglike_chandrasekhar)
 from smc_tpu_torch.ops import cuda_dsge_expectations
-from smc_tpu_torch.ops.cuda_dsge import _check, _cuda_device, _raise_on
+from smc_tpu_torch.ops.kernels import check, cuda_device, launch, load
 from smc_tpu_torch.tracing import span
 
-LAUNCHES = {"re_general": 0, "kalman_general": 0}
+_LIB = "dsge_general"
 
 MAX_STATE = _build.GENERAL_MAX_STATE
 MAX_SHOCK = _build.GENERAL_MAX_SHOCK
@@ -102,41 +98,6 @@ def _domain(n_s, n_k, n_o=1, n_t=0):
             f"and tiles within {SMEM_LIMIT} bytes of shared memory")
 
 
-_lib = None
-_prepared = set()   # device indices
-
-
-def _library(device: torch.device):
-    """The kernel library, built and loaded at its first use; the kernels'
-    shared-memory limit raised once per device before the first launch (so
-    no launch, and none inside a CUDA graph capture, sets an attribute)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(_build.build_cuda_library("dsge_general")))
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.smc_general_re.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
-                                       ctypes.c_double, P]
-        lib.smc_general_re.restype = I
-        lib.smc_general_kalman.argtypes = [I, I, I, P, P, P, P, P, P, P, I,
-                                           P, L, I, P, P]
-        lib.smc_general_kalman.restype = I
-        lib.smc_general_re_smem.argtypes = [I, I]
-        lib.smc_general_re_smem.restype = L
-        lib.smc_general_kalman_smem.argtypes = [I, I, I, I]
-        lib.smc_general_kalman_smem.restype = L
-        lib.smc_general_prepare.argtypes = [I]
-        lib.smc_general_prepare.restype = I
-        _lib = lib
-    if device.index not in _prepared:
-        with torch.cuda.device(device):
-            rc = _lib.smc_general_prepare(SMEM_LIMIT)
-        if rc != 0:
-            raise RuntimeError(f"general DSGE kernel set-up failed (CUDA "
-                               f"error {rc})")
-        _prepared.add(device.index)
-    return _lib
-
-
 def _same_bytes(got, want, what):
     """The library's tile size must be the one the route was decided on."""
     if got != want:
@@ -153,25 +114,20 @@ def solve_linear_re(A, B, C, D, n_iter: int = 16, tol: float = 1e-8):
     _domain(n_s, n_k)
     if A.device.type == "cpu":
         return bl_solve_linear_re(A, B, C, D, n_iter=n_iter, tol=tol)
-    dev = _cuda_device(A)
+    dev = cuda_device(A)
     for name, t in (("A", A), ("B", B), ("C", C)):
-        _check(name, t, (n_s, n_s, n), dev)
-    _check("D", D, (n_s, n_k, n), dev)
+        check(name, t, (n_s, n_s, n), dev)
+    check("D", D, (n_s, n_k, n), dev)
     X = torch.empty((n_s, n_s, n), dtype=torch.float64, device=dev)
     M = torch.empty((n_s, n_k, n), dtype=torch.float64, device=dev)
     ok = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return X, M, ok
-    lib = _library(dev)
-    _same_bytes(lib.smc_general_re_smem(n_s, n_k), re_smem_bytes(n_s, n_k),
-                "RE solve")
-    with torch.cuda.device(dev):
-        rc = lib.smc_general_re(
-            n_s, n_k, A.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
-            X.data_ptr(), M.data_ptr(), ok.data_ptr(), n, int(n_iter),
-            float(tol), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "general RE solve")
-    LAUNCHES["re_general"] += 1
+    _same_bytes(load(_LIB, dev).smc_general_re_smem(n_s, n_k),
+                re_smem_bytes(n_s, n_k), "RE solve")
+    launch(_LIB, "smc_general_re", dev, n_s, n_k, A.data_ptr(), B.data_ptr(),
+           C.data_ptr(), D.data_ptr(), X.data_ptr(), M.data_ptr(),
+           ok.data_ptr(), n, int(n_iter), float(tol))
     return X, M, ok
 
 
@@ -190,30 +146,26 @@ def kalman_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H, data, ok=None,
         ll = bl_kalman_loglike_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H,
                                              data)
         return ll if ok is None else torch.where(ok, ll, float("-inf"))
-    dev = _cuda_device(T_mat)
-    _check("T", T_mat, (n_s, n_s, n), dev)
-    _check("R", R_mat, (n_s, n_k, n), dev)
-    _check("Q", Q, (n_k, n_k, n), dev)
-    _check("Z", Z, (n_o, n_s, n), dev)
-    _check("d_obs", d_obs, (n_o, n), dev)
-    _check("H", H, (n_o, n_o, n), dev)
-    _check("data", data, (n_o, n_t), dev)
+    dev = cuda_device(T_mat)
+    check("T", T_mat, (n_s, n_s, n), dev)
+    check("R", R_mat, (n_s, n_k, n), dev)
+    check("Q", Q, (n_k, n_k, n), dev)
+    check("Z", Z, (n_o, n_s, n), dev)
+    check("d_obs", d_obs, (n_o, n), dev)
+    check("H", H, (n_o, n_o, n), dev)
+    check("data", data, (n_o, n_t), dev)
     if ok is not None:
-        _check("ok", ok, (n,), dev, torch.bool)
+        check("ok", ok, (n,), dev, torch.bool)
     out = torch.empty(n, dtype=torch.float64, device=dev)
     if n == 0:
         return out
-    lib = _library(dev)
-    _same_bytes(lib.smc_general_kalman_smem(n_s, n_k, n_o, n_t),
+    _same_bytes(load(_LIB, dev).smc_general_kalman_smem(n_s, n_k, n_o, n_t),
                 kalman_smem_bytes(n_s, n_k, n_o, n_t), "Kalman")
-    with torch.cuda.device(dev):
-        rc = lib.smc_general_kalman(
-            n_s, n_k, n_o, T_mat.data_ptr(), R_mat.data_ptr(), Q.data_ptr(),
-            Z.data_ptr(), d_obs.data_ptr(), H.data_ptr(), data.data_ptr(),
-            n_t, None if ok is None else ok.data_ptr(), n, int(lyap_iter),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "general Kalman")
-    LAUNCHES["kalman_general"] += 1
+    launch(_LIB, "smc_general_kalman", dev, n_s, n_k, n_o, T_mat.data_ptr(),
+           R_mat.data_ptr(), Q.data_ptr(), Z.data_ptr(), d_obs.data_ptr(),
+           H.data_ptr(), data.data_ptr(), n_t,
+           None if ok is None else ok.data_ptr(), n, int(lyap_iter),
+           out.data_ptr())
     return out
 
 

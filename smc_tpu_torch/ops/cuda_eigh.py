@@ -18,47 +18,20 @@ on it alone. Both versions return the same form: eigenvalues ascending,
 each eigenvector's sign fixed so that its largest-magnitude entry (the
 first of equal ones) is positive, and NaN everywhere for a matrix with a
 non-finite entry (nothing raises, as with `jnp.linalg.eigh`). Only the
-lower triangle is read. `LAUNCHES["eigh"]` counts kernel launches, one per
-call that reaches the GPU.
+lower triangle is read. The kernel launches through ops/kernels.py, which
+counts it under "eigh".
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import List, Sequence, Tuple
 
 import torch
 
-LAUNCHES = {"eigh": 0}
+from smc_tpu_torch.ops.kernels import cuda_device, launch
+
 MAX_K = 1024     # smc_jacobi::kMaxK
 SHARED_K = 118   # smc_jacobi::kSharedK
-
-_lib = None
-_prepared = set()
-
-
-def _library(device: torch.device):
-    """The kernel library, loaded once; its shared-memory limit raised once
-    per device (outside any graph capture: the first call on a device is
-    an eager one)."""
-    global _lib
-    if _lib is None:
-        from smc_tpu_torch import _build
-        lib = ctypes.CDLL(str(_build.build_cuda_library("eigh")))
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.smc_eigh.argtypes = [I, L, I, L, P, P, P, P, P]
-        lib.smc_eigh.restype = I
-        lib.smc_eigh_prepare.argtypes = []
-        lib.smc_eigh_prepare.restype = I
-        _lib = lib
-    if device.index not in _prepared:
-        with torch.cuda.device(device):
-            rc = _lib.smc_eigh_prepare()
-        if rc != 0:
-            raise RuntimeError(f"eigh kernel set-up failed (CUDA error {rc})")
-        _prepared.add(device.index)
-    return _lib
-
 
 def eigh_plain(A: torch.Tensor):
     """The plain version: torch.linalg.eigh in the kernel's form (each
@@ -140,9 +113,7 @@ def _launch(a, lam, U, parts) -> None:
     """The kernel on the packed matrices a (parts: [(k, n)], one or two)
     into lam and U, on the current stream of a's device; raises unless it
     launched."""
-    dev = a.device
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {dev}")
+    dev = cuda_device(a)
     for k, _ in parts:
         check_block(k)
     if sum(n for _, n in parts) == 0:
@@ -154,15 +125,6 @@ def _launch(a, lam, U, parts) -> None:
             else None)
     k0, n0 = parts[0]
     k1, n1 = parts[1] if len(parts) > 1 else (k0, 0)
-    lib = _library(dev)
-    args = (k0, n0, k1, n1, a.data_ptr(), lam.data_ptr(), U.data_ptr(),
-            None if work is None else work.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if torch.cuda.current_device() == dev.index:
-        rc = lib.smc_eigh(*args)
-    else:
-        with torch.cuda.device(dev):
-            rc = lib.smc_eigh(*args)
-    if rc != 0:
-        raise RuntimeError(f"eigh kernel launch failed (CUDA error {rc})")
-    LAUNCHES["eigh"] += 1
+    launch("eigh", "smc_eigh", dev, k0, n0, k1, n1, a.data_ptr(),
+           lam.data_ptr(), U.data_ptr(),
+           None if work is None else work.data_ptr())

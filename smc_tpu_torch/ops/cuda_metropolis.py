@@ -14,39 +14,23 @@ i mod n and takes `steps` Metropolis steps (none where `flag` is false),
 step t of slot i drawing from Philox4x32-10 at counter (i, t, 0, 0) under
 `key` (two words in [0, 2^32)). Dispatch: a CPU tensor runs the plain
 version (`metropolis_chain_plain`, the same arithmetic in torch, bit for
-bit); a CUDA tensor launches the kernel, or raises. `LAUNCHES["metropolis"]`
-counts kernel launches, one per call that reaches the GPU.
+bit); a CUDA tensor launches the kernel, or raises. The kernel launches
+through ops/kernels.py, which counts it under "metropolis".
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
-LAUNCHES = {"metropolis": 0}
+from smc_tpu_torch.ops.kernels import cuda_device, launch
 
 # Philox4x32-10's multipliers and key increments (Random123)
 M0, M1 = 0xD2511F53, 0xCD9E8D57
 W0, W1 = 0x9E3779B9, 0xBB67AE85
 _MASK = 0xFFFFFFFF
 _TWO_M53 = 2.0 ** -53
-
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from smc_tpu_torch import _build
-        lib = ctypes.CDLL(str(_build.build_cuda_library("metropolis")))
-        P, L = ctypes.c_void_p, ctypes.c_longlong
-        lib.smc_metropolis.argtypes = [P, L, L, P, P, P, P, P]
-        lib.smc_metropolis.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
 
 def _mulhilo(m: int, x: torch.Tensor):
     """(hi, lo) 32-bit words of m * x for a 32-bit constant m and 32-bit
@@ -122,9 +106,7 @@ def metropolis_chain(weights: torch.Tensor, key: torch.Tensor,
     host; on the CPU the plain version."""
     if weights.device.type == "cpu":
         return metropolis_chain_plain(weights, key, steps, flag, n_out)
-    dev = weights.device
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {dev}")
+    dev = cuda_device(weights)
     n = weights.shape[0]
     n_out = n if n_out is None else int(n_out)
     _check(weights, key, n_out)
@@ -139,17 +121,6 @@ def metropolis_chain(weights: torch.Tensor, key: torch.Tensor,
     w = weights.contiguous()
     key, flag, steps = key.contiguous(), flag.reshape(()), steps.reshape(())
     idx = torch.empty(n_out, dtype=torch.int64, device=dev)
-    args = (w.data_ptr(), n, n_out, key.data_ptr(), flag.data_ptr(),
-            steps.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    lib = _library()
-    if torch.cuda.current_device() == dev.index:
-        rc = lib.smc_metropolis(*args)
-    else:
-        with torch.cuda.device(dev):
-            rc = lib.smc_metropolis(*args)
-    if rc != 0:
-        raise RuntimeError(f"metropolis kernel launch failed (CUDA error "
-                           f"{rc})")
-    LAUNCHES["metropolis"] += 1
+    launch("metropolis", "smc_metropolis", dev, w.data_ptr(), n, n_out,
+           key.data_ptr(), flag.data_ptr(), steps.data_ptr(), idx.data_ptr())
     return idx

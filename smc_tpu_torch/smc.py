@@ -54,8 +54,7 @@ from smc_tpu_torch.cloud import (Cloud, ARRAY_FIELDS, weighted_mean,
 from smc_tpu_torch.params import ParamSpace
 from smc_tpu_torch.rng import TorchDraws, ParticleDraws, ReplayDraws
 from smc_tpu_torch.tracing import span
-from smc_tpu_torch.ops import (cuda_dsge, cuda_dsge_expectations,
-                               cuda_dsge_general, cuda_eigh, cuda_metropolis)
+from smc_tpu_torch.ops import cuda_eigh, kernels
 from smc_tpu_torch.ops.correction import correct
 from smc_tpu_torch.ops.schedule import fixed_schedule, solve_adaptive_phi
 from smc_tpu_torch.ops.resample import (resample as resample_indices,
@@ -268,12 +267,6 @@ def _initial_state(cloud, device, c, phi, j, phi_prop, resampled_last,
                 log_mdd=f64(log_mdd), resamples=i64(0), nan_ess=b(False))
 
 
-# the kernels' launch counters
-_COUNTERS = (cuda_dsge.LAUNCHES, cuda_dsge_general.LAUNCHES,
-             cuda_dsge_expectations.LAUNCHES, cuda_eigh.LAUNCHES,
-             cuda_metropolis.LAUNCHES)
-
-
 def _add_counts(counters, counts, times=1):
     """Add `times` x counts to counters (dicts, entry by entry)."""
     for d, c in zip(counters, counts):
@@ -294,18 +287,18 @@ class FusedRecursion:
     runs the body eagerly, the second captures it as a CUDA graph (the
     run's generator registered with it, so each replay advances the
     generator as an eager stage does) and then replays it; every later call
-    replays. The kernels' launch counters, and `counters` (a mesh's
-    collective counts), count what the graph issues once per replay and
-    nothing for the capture. The capture is in "thread_local" mode: under
-    a mesh the NCCL process group's watchdog thread may query the events
-    of earlier collectives while the capture runs, and "global" mode would
-    hold such a call, from any thread, against the capture. On the CPU
-    every call runs the body eagerly."""
+    replays. The kernels' launch registry (ops/kernels.py LAUNCHES), and
+    `counters` (a mesh's collective counts), count what the graph issues
+    once per replay and nothing for the capture. The capture is in
+    "thread_local" mode: under a mesh the NCCL process group's watchdog
+    thread may query the events of earlier collectives while the capture
+    runs, and "global" mode would hold such a call, from any thread,
+    against the capture. On the CPU every call runs the body eagerly."""
 
     def __init__(self, step, draws, state, chunk: int, n_parts: int,
                  store_weight_matrices: bool, counters=()):
         dev = state["params"].device
-        self.counters = list(_COUNTERS) + list(counters)
+        self.counters = [kernels.LAUNCHES, *counters]
         self.step, self.draws, self.device = step, draws, dev
         self.buffers = {k: v.clone() for k, v in state.items()}
         self.buffers["k"] = torch.zeros((), dtype=torch.int64, device=dev)

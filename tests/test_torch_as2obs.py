@@ -33,9 +33,9 @@ from smc_tpu.models import as_dsge as jas  # noqa: E402
 from smc_tpu.params import ParamSpace as JParamSpace  # noqa: E402
 
 from smc_tpu_torch.models import as_dsge as tas  # noqa: E402
-from smc_tpu_torch.ops import cuda_dsge  # noqa: E402
+from smc_tpu_torch.ops.kernels import LAUNCHES  # noqa: E402
 
-from torch_parity import assert_loglh_close  # noqa: E402
+from torch_parity import assert_loglh_close, launches_since  # noqa: E402
 
 
 @pytest.fixture(scope="module")
@@ -73,11 +73,10 @@ def test_as_2obs_measurement_is_the_first_two_rows():
 
 
 def test_as_2obs_launches_no_kernel(as2_case):
-    for k in cuda_dsge.LAUNCHES:
-        cuda_dsge.LAUNCHES[k] = 0
+    before = dict(LAUNCHES)
     tas.an_schorfheide_2obs().loglike_batched(
         torch.as_tensor(as2_case["th"][:8]), as2_case["data"])
-    assert cuda_dsge.LAUNCHES == {"re": 0, "kalman": 0}
+    assert launches_since(before) == {}
 
 
 def _jax_reference():

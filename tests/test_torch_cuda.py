@@ -11,10 +11,11 @@ torch.set_num_threads(1)
 
 from smc_tpu_torch.models import as_dsge as tas
 from smc_tpu_torch.models.dsge import bl_dsge_loglike, bl_solve_linear_re
-from smc_tpu_torch.ops import cuda_dsge
+from smc_tpu_torch.ops import cuda_dsge, kernels
+from smc_tpu_torch.ops.kernels import LAUNCHES
 
 from torch_parity import (BAND_NATS, BAND_RTOL, TAIL_NATS, as_prior_draws,
-                          assert_loglh_close, tiny_system)
+                          assert_loglh_close, launches_since, tiny_system)
 
 pytestmark = pytest.mark.cuda
 
@@ -56,9 +57,9 @@ def _as_inputs(dev, n=2048, seed=3):
 
 def test_re_kernel_matches_plain(dev):
     sys_t, _ = _as_inputs(dev)
-    before = cuda_dsge.LAUNCHES["re"]
+    before = dict(LAUNCHES)
     X, M, ok = cuda_dsge.solve_linear_re(*sys_t)
-    assert cuda_dsge.LAUNCHES["re"] == before + 1
+    assert launches_since(before) == {"re": 1}
     Xp, Mp, okp = bl_solve_linear_re(*sys_t)
     assert (ok == okp).double().mean().item() >= 0.9999
     both = (ok & okp).cpu()
@@ -187,16 +188,11 @@ def _card_and_cpu(dev, model, params, data, n, seed):
 def test_as_2obs_likelihood_on_card_matches_cpu(dev):
     """The Cholesky innovation path on the card: the general-shape kernels,
     one launch each, none of the n_obs 3 kernels."""
-    from smc_tpu_torch.ops import cuda_dsge_general
-    before = dict(cuda_dsge.LAUNCHES)
-    before_g = dict(cuda_dsge_general.LAUNCHES)
+    before = dict(LAUNCHES)
     got, want = _card_and_cpu(dev, tas.an_schorfheide_2obs(),
                               tas.an_schorfheide_parameters(),
                               tas.load_as_data()[:2], 2048, seed=4)
-    assert cuda_dsge.LAUNCHES == before
-    assert {k: v - before_g[k] for k, v in
-            cuda_dsge_general.LAUNCHES.items()} == {"re_general": 1,
-                                                    "kalman_general": 1}
+    assert launches_since(before) == {"re_general": 1, "kalman_general": 1}
     assert_loglh_close(got, want)
 
 
@@ -204,15 +200,11 @@ def test_as_plain_backend_on_card_runs_the_n_obs3_kernels(dev):
     """AS on the "plain" backend on the card: its shape lies in the n_obs 3
     kernels' domain, so it runs them (one launch each, none of the general
     kernels) and gives the "kernel" backend's bits."""
-    from smc_tpu_torch.ops import cuda_dsge_general
     th = torch.as_tensor(as_prior_draws(1024, seed=5), device=dev)
     data = tas.load_as_data()
-    before = dict(cuda_dsge.LAUNCHES)
-    before_g = dict(cuda_dsge_general.LAUNCHES)
+    before = dict(LAUNCHES)
     got = tas.an_schorfheide("plain").loglike_batched(th, data)
-    assert cuda_dsge_general.LAUNCHES == before_g
-    assert {k: v - before[k] for k, v in cuda_dsge.LAUNCHES.items()} == {
-        "re": 1, "kalman": 1}
+    assert launches_since(before) == {"re": 1, "kalman": 1}
     assert torch.equal(got, tas.an_schorfheide().loglike_batched(th, data))
 
 
@@ -220,7 +212,7 @@ def test_kalman_smem_bytes_are_the_kernels(dev):
     """The route decides the n_obs 3 kernels' domain from its own copy of
     the Kalman kernel's shared memory: equal to the library's."""
     for n_s in cuda_dsge._build.DSGE_STATES:
-        lib = cuda_dsge._library(dev, n_s)
+        lib = kernels.load(f"dsge_ns{n_s}", dev)
         for n_t in (0, 1, 80, 197, 7936, 9301):
             assert lib.smc_kalman_smem_bytes(n_s, n_t) == \
                 cuda_dsge.kalman_smem_bytes(n_s, n_t)
@@ -266,11 +258,10 @@ def test_general_kernels_match_plain_at_sw_shape(dev):
     from torch_parity import normwise_rel
     from smc_tpu_torch.ops import cuda_dsge_general as g
     sys_t, rest = _sw_inputs(dev)
-    before = dict(g.LAUNCHES)
+    before = dict(LAUNCHES)
     X, M, ok = g.solve_linear_re(*sys_t)
     ll = g.kalman_chandrasekhar(X, M, *rest, ok=ok)
-    assert {k: v - before[k] for k, v in g.LAUNCHES.items()} == {
-        "re_general": 1, "kalman_general": 1}
+    assert launches_since(before) == {"re_general": 1, "kalman_general": 1}
     Xp, Mp, okp = bl_solve_linear_re(*sys_t)
     assert torch.equal(ok, okp)
     assert normwise_rel(X[..., ok], Xp[..., ok]).max().item() <= 1e-10
@@ -385,9 +376,9 @@ def test_general_kalman_across_n_obs_matches_host_build(dev, n_s, n_o):
     X, M, ok = bl_solve_linear_re(A, B, C, D)
     assert bool(ok.all())
     cpu = (X, M, Q, Z, d, H, data)
-    before = g.LAUNCHES["kalman_general"]
+    before = dict(LAUNCHES)
     got = g.kalman_chandrasekhar(*(x.to(dev) for x in cpu), ok=ok.to(dev))
-    assert g.LAUNCHES["kalman_general"] == before + 1
+    assert launches_since(before) == {"kalman_general": 1}
     host = _host_build().kalman(*cpu, ok)
     want = bl_kalman_loglike_chandrasekhar(*cpu)
     assert_loglh_close(got.cpu().numpy(), host.numpy())
@@ -438,11 +429,10 @@ def test_general_kernels_in_a_cuda_graph(dev):
         call()
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    before = dict(g.LAUNCHES)
+    before = dict(LAUNCHES)
     with torch.cuda.graph(graph):
         out = call()
-    assert {k: v - before[k] for k, v in g.LAUNCHES.items()} == {
-        "re_general": 2, "kalman_general": 2}
+    assert launches_since(before) == {"re_general": 2, "kalman_general": 2}
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1])
@@ -462,19 +452,20 @@ def test_one_rank_nccl_mesh_matches_unsharded(dev, tmp_path):
         model.loglike_batched, tas.an_schorfheide_parameters(),
         tas.load_as_data(), batched=True, n_parts=1024, n_phi=6, lam=2.0,
         verbose="none", seed=2, device=dev, mesh=mesh)
-    before = dict(cuda_dsge.LAUNCHES)
+    before = dict(LAUNCHES)
     want = run(None)
-    plain = {k: cuda_dsge.LAUNCHES[k] - before[k] for k in before}
+    plain = launches_since(before)
     initialize_multihost(num_processes=1, process_id=0, backend="nccl",
                          device=dev,
                          store=dist.FileStore(str(tmp_path / "store"), 1))
     try:
-        before = dict(cuda_dsge.LAUNCHES)
+        before = dict(LAUNCHES)
         got = run(particle_mesh())
-        meshed = {k: cuda_dsge.LAUNCHES[k] - before[k] for k in before}
+        meshed = launches_since(before)
     finally:
         dist.destroy_process_group()
-    assert meshed == plain == {k: 1 + want.init_rounds + 5 for k in plain}
+    n_calls = 1 + want.init_rounds + 5
+    assert meshed == plain == {"re": n_calls, "kalman": n_calls, "eigh": 5}
     np.testing.assert_allclose(got.log_mdd, want.log_mdd, rtol=1e-12)
     np.testing.assert_allclose(got.cloud.loglh.cpu().numpy(),
                                want.cloud.loglh.cpu().numpy(), rtol=1e-12)
@@ -513,9 +504,9 @@ def test_eigh_kernel_matches_plain(dev, k, batch):
     matrix in shared memory up to 118, past it the global workspace."""
     from smc_tpu_torch.ops import cuda_eigh
     a = _spd(k, batch, k, dev)
-    before = cuda_eigh.LAUNCHES["eigh"]
+    before = dict(LAUNCHES)
     lam, u = cuda_eigh.eigh(a)
-    assert cuda_eigh.LAUNCHES["eigh"] == before + 1
+    assert launches_since(before) == {"eigh": 1}
     _assert_eigh_close(a, lam, u)
     a_nan = a.clone()
     a_nan[0, k - 1, 0] = float("nan")
@@ -532,9 +523,9 @@ def test_eigh_kernel_two_sizes_in_one_launch(dev, sizes):
     from smc_tpu_torch.ops import cuda_eigh
     first = _spd(sizes[0], len(sizes) - 1, sum(sizes), dev)
     last = _spd(sizes[-1], 1, sizes[-1], dev)
-    before = cuda_eigh.LAUNCHES["eigh"]
+    before = dict(LAUNCHES)
     (lam0, u0), (lam1, u1) = cuda_eigh.eigh_batched([first, last])
-    assert cuda_eigh.LAUNCHES["eigh"] == before + 1
+    assert launches_since(before) == {"eigh": 1}
     for a, lam, u in ((first, lam0, u0), (last, lam1, u1)):
         _assert_eigh_close(a, lam, u)
         for i in range(a.shape[0]):
@@ -567,23 +558,20 @@ def test_captured_as_stage_replays_the_eager_stage(dev):
     """Stage 1 eager, stage 2 captured and replayed, against two eager
     stages from the same cloud and generator: every buffer and trace bit
     for bit, and each kernel counted once per replay."""
-    from smc_tpu_torch.ops import cuda_eigh
     graphed, eager = _as_fused_recursion(dev), _as_fused_recursion(dev)
     stream = torch.cuda.Stream(dev)
     stream.wait_stream(torch.cuda.current_stream(dev))
     with torch.cuda.stream(stream):
         graphed.run_stage()
-        before = (dict(cuda_dsge.LAUNCHES), dict(cuda_eigh.LAUNCHES))
+        before = dict(LAUNCHES)
         graphed.run_stage()
-        counted = ({k: cuda_dsge.LAUNCHES[k] - before[0][k]
-                    for k in before[0]},
-                   cuda_eigh.LAUNCHES["eigh"] - before[1]["eigh"])
+        counted = launches_since(before)
         eager.body()
         eager.body()
     torch.cuda.current_stream(dev).wait_stream(stream)
     torch.cuda.synchronize(dev)
     assert graphed.graph is not None
-    assert counted == ({"re": 1, "kalman": 1}, 1)
+    assert counted == {"re": 1, "kalman": 1, "eigh": 1}
     for k, v in graphed.buffers.items():
         assert torch.equal(v, eager.buffers[k]), k
     for a, b in ((graphed.scalars, eager.scalars), (graphed.w, eager.w),
@@ -596,23 +584,20 @@ def test_fused_as_run_equals_host_loop_on_card(dev):
     """AS at 1,024 particles, 9 stages: fused (a graph replay per stage)
     and the host loop give the same bits and the same kernel launches."""
     import smc_tpu_torch
-    from smc_tpu_torch.ops import cuda_eigh
     model = tas.an_schorfheide()
     out = {}
     for fused in (True, False):
-        before = dict(cuda_dsge.LAUNCHES), cuda_eigh.LAUNCHES["eigh"]
+        before = dict(LAUNCHES)
         res = smc_tpu_torch.smc(
             model.loglike_batched, tas.an_schorfheide_parameters(),
             tas.load_as_data(), batched=True, n_parts=1024, n_phi=10,
             lam=2.0, verbose="none", seed=2, device=dev, fused=fused)
-        launches = ({k: cuda_dsge.LAUNCHES[k] - before[0][k]
-                     for k in before[0]},
-                    cuda_eigh.LAUNCHES["eigh"] - before[1])
-        out[fused] = res, launches
+        out[fused] = res, launches_since(before)
     (a, la), (b, lb) = out[True], out[False]
     assert a.fused and not b.fused
     assert la == lb
-    assert la[0] == {k: 1 + a.init_rounds + 9 for k in la[0]} and la[1] == 9
+    n_calls = 1 + a.init_rounds + 9
+    assert la == {"re": n_calls, "kalman": n_calls, "eigh": 9}
     assert torch.equal(a.cloud.params, b.cloud.params)
     assert a.log_mdd == b.log_mdd
     np.testing.assert_array_equal(a.W, b.W)
@@ -627,15 +612,14 @@ def test_eigh_one_launch_per_stage_with_blocks(dev, fused):
     from smc_tpu_torch.models.linear import (linear_parameters,
                                              make_linear_loglike,
                                              generate_linear_data)
-    from smc_tpu_torch.ops import cuda_eigh
     data, X = generate_linear_data(seed=1793)
-    before = cuda_eigh.LAUNCHES["eigh"]
+    before = LAUNCHES["eigh"]
     res = smc_tpu_torch.smc(make_linear_loglike(X), linear_parameters(), data,
                             n_parts=1024, n_phi=8, lam=2.1, n_blocks=3,
                             n_mh_steps=2, verbose="none", seed=2, device=dev,
                             fused=fused)
     assert res.fused == fused
-    assert cuda_eigh.LAUNCHES["eigh"] - before == 7
+    assert LAUNCHES["eigh"] - before == 7
 
 
 @pytest.mark.parametrize("case", ["n1", "n7", "n4096", "n_out_less",
@@ -654,10 +638,10 @@ def test_metropolis_chain_kernel_matches_plain(dev, case):
     steps_t = (chain_steps(wt, 0.01, cap)[0] if steps is None
                else torch.tensor(steps, device=dev))
     flag_t = torch.tensor(flag, device=dev)
-    before = cuda_metropolis.LAUNCHES["metropolis"]
+    before = dict(LAUNCHES)
     got = cuda_metropolis.metropolis_chain(wt, key, steps_t, flag_t, n_out)
     torch.cuda.synchronize(dev)
-    assert cuda_metropolis.LAUNCHES["metropolis"] - before == 1
+    assert launches_since(before) == {"metropolis": 1}
     want = cuda_metropolis.metropolis_chain_plain(wt, key, steps_t, flag_t,
                                                   n_out)
     assert torch.equal(got, want)
@@ -672,17 +656,16 @@ def test_fused_metropolis_run_equals_host_loop_on_card(dev):
     from smc_tpu_torch.models.linear import (linear_parameters,
                                              make_linear_loglike,
                                              generate_linear_data)
-    from smc_tpu_torch.ops import cuda_metropolis
     data, X = generate_linear_data(seed=1793)
     out = {}
     for fused in (True, False):
-        before = cuda_metropolis.LAUNCHES["metropolis"]
+        before = LAUNCHES["metropolis"]
         res = smc_tpu_torch.smc(make_linear_loglike(X), linear_parameters(),
                                 data, n_parts=2048, n_phi=20, lam=2.1,
                                 resampling_method="metropolis",
                                 verbose="none", seed=2, device=dev,
                                 fused=fused)
-        out[fused] = res, cuda_metropolis.LAUNCHES["metropolis"] - before
+        out[fused] = res, LAUNCHES["metropolis"] - before
     (a, la), (b, lb) = out[True], out[False]
     assert a.fused and not b.fused
     assert la == lb == 19

@@ -26,9 +26,10 @@ from smc_tpu_torch.models import as_dsge as tas
 from smc_tpu_torch.models.dsge import (bl_solve_linear_re,
                                        bl_kalman_loglike_chandrasekhar)
 from smc_tpu_torch.ops import cuda_dsge
+from smc_tpu_torch.ops.kernels import LAUNCHES
 
-from torch_parity import (as_prior_draws, assert_loglh_close, synthetic_model,
-                          synthetic_system, tiny_system)
+from torch_parity import (as_prior_draws, assert_loglh_close, launches_since,
+                          synthetic_model, synthetic_system, tiny_system)
 
 
 def _bl(x):
@@ -185,12 +186,11 @@ def test_nan_particle_leaves_others_unchanged(as_case):
 
 
 def test_cpu_tensors_do_not_launch(as_case):
-    for k in cuda_dsge.LAUNCHES:
-        cuda_dsge.LAUNCHES[k] = 0
+    before = dict(LAUNCHES)
     model = tas.an_schorfheide()
     model.loglike_batched(torch.as_tensor(as_case["th"][:8]),
                           as_case["data"])
-    assert cuda_dsge.LAUNCHES == {"re": 0, "kalman": 0}
+    assert launches_since(before) == {}
 
 
 def test_wrappers_refuse_other_devices():

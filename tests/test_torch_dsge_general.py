@@ -34,11 +34,13 @@ from smc_tpu_torch.models.dsge import (bl_dsge_loglike, bl_solve_linear_re,
                                        bl_kalman_loglike_chandrasekhar,
                                        likelihood_route)
 from smc_tpu_torch.ops import cuda_dsge_general
+from smc_tpu_torch.ops.kernels import LAUNCHES
 from smc_tpu_torch.ops.linalg import bl_psd_fast_solve
 
 from test_torch_cuda import assert_sw_loglh_close
 from torch_parity import (GeneralHostBuild, as_prior_draws,
-                          assert_loglh_close, normwise_rel, synthetic_system)
+                          assert_loglh_close, launches_since, normwise_rel,
+                          synthetic_system)
 
 XM_RTOL = 1e-10     # X and M, normwise per particle
 
@@ -451,14 +453,12 @@ def test_likelihood_route(backend, chand, device, shape, want):
 
 
 def test_models_on_cpu_launch_no_kernel():
-    for k in cuda_dsge_general.LAUNCHES:
-        cuda_dsge_general.LAUNCHES[k] = 0
+    before = dict(LAUNCHES)
     th = torch.as_tensor(np.stack([tsw.TRUE_PARAMS] * 2))
     tsw.smets_wouters().loglike_batched(th, tsw.load_sw_data())
     tas.an_schorfheide_2obs().loglike_batched(
         torch.as_tensor(as_prior_draws(4, seed=2)), tas.load_as_data()[:2])
-    assert cuda_dsge_general.LAUNCHES == {"re_general": 0,
-                                          "kalman_general": 0}
+    assert launches_since(before) == {}
 
 
 def test_wrappers_on_cpu_are_the_plain_versions():

@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from smc_tpu_torch import _build
+from smc_tpu_torch.ops import kernels
 from smc_tpu_torch.models import as_dsge as tas
 from smc_tpu_torch.models.dsge import (bl_solve_linear_re,
                                        bl_kalman_loglike_chandrasekhar)
@@ -38,15 +39,9 @@ class _BodyLibraries:
 
     def _get(self, n_s, n_k):
         if (n_s, n_k) not in self._libs:
-            lib = ctypes.CDLL(str(_build.build_cpu_library(n_s, n_k)))
-            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.smc_re_solve_cpu.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
-                                             ctypes.c_double]
-            lib.smc_re_solve_cpu.restype = I
-            lib.smc_kalman_cpu.argtypes = [I, I, P, P, P, P, P, P, P, I, P,
-                                           L, I, P]
-            lib.smc_kalman_cpu.restype = I
-            self._libs[n_s, n_k] = lib
+            name = f"dsge_ns{n_s}"
+            self._libs[n_s, n_k] = kernels.typed(
+                _build.build_cpu_library(name, n_k), name, host=True)
         return self._libs[n_s, n_k]
 
     def smc_re_solve_cpu(self, n_s, n_k, *args):
@@ -294,6 +289,33 @@ def test_spectral_bound_decision_near_one(lib, gap):
     np.testing.assert_allclose(X.numpy(), Xp.numpy(), rtol=1e-10, atol=1e-12)
 
 
+# --- the table of kernel libraries -------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(_build.CUDA_LIBRARIES))
+def test_host_build_holds_every_declared_entry(name):
+    """Each library's host build, made through build_cpu_library, exports
+    every entry point _build.CUDA_LIBRARIES declares for it (each kernel's
+    <entry>_cpu and the host-only probes), and the layer types each as
+    declared; a kernel's card entry ends with the stream."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the host version of the kernel bodies")
+    spec = _build.CUDA_LIBRARIES[name]
+    path = _build.build_cpu_library(
+        name, 1 if name.startswith("dsge_ns") else None)
+    raw = ctypes.CDLL(str(path))
+    lib = kernels.typed(path, name, host=True)
+    entries = spec.entries(host=True)
+    assert {f"{k}_cpu" for k in spec.kernels} <= set(entries)
+    for symbol, (restype, argtypes) in entries.items():
+        assert hasattr(raw, symbol), symbol
+        fn = getattr(lib, symbol)
+        assert fn.restype is restype and fn.argtypes == list(argtypes)
+    for symbol, (restype, argtypes) in spec.entries().items():
+        if symbol in spec.kernels:
+            assert argtypes[-1] is ctypes.c_void_p and restype is ctypes.c_int
+    assert {key for key, _ in spec.kernels.values()} <= set(kernels.LAUNCHES)
+
+
 # --- the Jacobi eigh body ----------------------------------------------------
 
 EIGH_TOL = 1e-12
@@ -303,11 +325,7 @@ EIGH_TOL = 1e-12
 def eigh_lib():
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the host version of the eigh body")
-    lib = ctypes.CDLL(str(_build.build_eigh_cpu_library()))
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.smc_eigh_cpu.argtypes = [I, L, I, L, P, P, P]
-    lib.smc_eigh_cpu.restype = I
-    return lib
+    return kernels.typed(_build.build_cpu_library("eigh"), "eigh", host=True)
 
 
 def _eigh_body(lib, a):
@@ -467,13 +485,8 @@ def test_eigh_plain_has_the_kernel_form():
 def metropolis_lib():
     if shutil.which("g++") is None:
         pytest.skip("no g++ to build the host version of the chain")
-    lib = ctypes.CDLL(str(_build.build_metropolis_cpu_library()))
-    P, L = ctypes.c_void_p, ctypes.c_longlong
-    lib.smc_philox_cpu.argtypes = [P, P, P]
-    lib.smc_philox_cpu.restype = None
-    lib.smc_metropolis_cpu.argtypes = [P, L, L, P, P, P, P]
-    lib.smc_metropolis_cpu.restype = ctypes.c_int
-    return lib
+    return kernels.typed(_build.build_cpu_library("metropolis"),
+                         "metropolis", host=True)
 
 
 def _chain_body(lib, w, key, steps, flag, n_out):

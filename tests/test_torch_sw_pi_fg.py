@@ -23,11 +23,13 @@ from smc_tpu_torch.models.dsge import (LinearDSGE, bl_expectation_rows,
                                        check_expectation_rows,
                                        likelihood_route)
 from smc_tpu_torch.ops import cuda_dsge_expectations as ce
+from smc_tpu_torch.ops import kernels
 from smc_tpu_torch.params import ParamSpace
 from smc_tpu_torch.rng import TorchDraws
 
 import reference_sw_pi_fg as ref
 from test_torch_cuda import assert_sw_loglh_close
+from torch_parity import launches_since
 
 # The bands (test_torch_cuda.assert_sw_loglh_close): within 50 nats of the
 # best draw two f64 implementations of the likelihood agree to rounding,
@@ -127,11 +129,8 @@ def test_bl_expectation_rows_match_matrix_powers():
 def test_host_build_of_the_kernel_matches_the_plain_version():
     """csrc/dsge_expectations.cuh's block body (g++, each thread in turn)
     against bl_expectation_rows, at the model's rows and the test rows."""
-    lib = ctypes.CDLL(str(_build.build_expectations_cpu_library()))
-    P = ctypes.c_void_p
-    lib.smc_expectation_rows_cpu.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, P, P, P, P, P,
-        ctypes.c_longlong]
+    lib = kernels.typed(_build.build_cpu_library("dsge_expectations"),
+                        "dsge_expectations", host=True)
     for n, n_o, rows, seed in ((44, 14, fg.EXPECTATION_ROWS, 3),
                                (9, 7, ROWS, 4), (64, 16, ((15, 0, 1, 3),), 5)):
         nb = 5
@@ -247,11 +246,10 @@ def test_kernel_route_matches_the_reference(dev):
     from smc_tpu_torch.ops import cuda_dsge_general as g
     th = _draws(500, 13, n_near=11).to(dev)
     data = torch.as_tensor(fg.load_sw_pi_fg_data(), device=dev)
-    before = dict(g.LAUNCHES, **ce.LAUNCHES)
+    before = dict(kernels.LAUNCHES)
     got = fg.sw_pi_fg().loglike_batched(th, data)
     torch.cuda.synchronize()
-    after = dict(g.LAUNCHES, **ce.LAUNCHES)
-    assert {k: after[k] - v for k, v in before.items()} == {
+    assert launches_since(before) == {
         "re_general": 1, "kalman_general": 1, "expectation_rows": 1}
     want = ref.loglike(th, data)
     assert bool(torch.isfinite(want[-11:]).all())

@@ -231,7 +231,7 @@ def test_on_the_card_the_expectation_rows_count_each_replay(
     eager stage and the capture, and in no replay."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from smc_tpu_torch.ops import cuda_dsge_expectations as ce
+    from smc_tpu_torch.ops.kernels import LAUNCHES
     dev = torch.device("cuda", 0)
     dsge, params, y = expectations_model
     run = lambda n_phi: smc_tpu_torch.smc(
@@ -239,10 +239,10 @@ def test_on_the_card_the_expectation_rows_count_each_replay(
         batched=True, verbose="none", device=dev)
     run(N_PHI)                                    # builds the kernels
     for n_phi in (N_PHI, 2 * N_PHI + 1):
-        before = ce.LAUNCHES["expectation_rows"]
+        before = LAUNCHES["expectation_rows"]
         res, prof = _traced(lambda: run(n_phi), cuda=True)
         assert res.fused and res.capture_seconds > 0
-        assert ce.LAUNCHES["expectation_rows"] - before == (
+        assert LAUNCHES["expectation_rows"] - before == (
             1 + res.init_rounds + n_phi - 1 + res.masked_stages)
         tree = _tree(prof)
         assert tree[("smc.likelihood.expectations", "smc.likelihood")] == (

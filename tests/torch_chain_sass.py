@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import ctypes
 import hashlib
 import json
 import re
@@ -103,6 +102,7 @@ def time_turns(libs: dict, reps: int = 200) -> dict:
     import numpy as np
     import torch
     import chip_smoke
+    from smc_tpu_torch.ops import kernels
     n, dev = 32768, torch.device("cuda")
     w = torch.as_tensor(np.random.default_rng(0).exponential(size=n),
                         device=dev)
@@ -112,14 +112,10 @@ def time_turns(libs: dict, reps: int = 200) -> dict:
     idx = torch.empty(n, dtype=torch.int64, device=dev)
     calls = {}
     for name, path in libs.items():
-        lib = ctypes.CDLL(str(path))
-        lib.smc_metropolis.restype = ctypes.c_int
-        args = (ctypes.c_void_p(w.data_ptr()), ctypes.c_longlong(n),
-                ctypes.c_longlong(n), ctypes.c_void_p(key.data_ptr()),
-                ctypes.c_void_p(flag.data_ptr()),
-                ctypes.c_void_p(steps.data_ptr()),
-                ctypes.c_void_p(idx.data_ptr()),
-                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        lib = kernels.typed(path, "metropolis")
+        args = (w.data_ptr(), n, n, key.data_ptr(), flag.data_ptr(),
+                steps.data_ptr(), idx.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
         calls[name] = lambda lib=lib, args=args: lib.smc_metropolis(*args)
     names = list(libs)
     order = names + names[::-1]

@@ -26,7 +26,6 @@ power limit, to FILE as JSON."""
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import sys
 from pathlib import Path
@@ -41,15 +40,10 @@ def launchers(path: Path, inputs, n_s: int, n_k: int):
     """(re(), kalman()): bare launches of the library's kernels on `inputs`
     into outputs allocated once."""
     import torch
-    lib = ctypes.CDLL(str(path))
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.smc_re_solve.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
-                                 ctypes.c_double, P]
-    lib.smc_kalman.argtypes = [I, I, P, P, P, P, P, P, P, I, P, L, I, P, P]
-    lib.smc_dsge_prepare.argtypes = [I]
-    if lib.smc_dsge_prepare(227 * 1024) != 0:
-        raise RuntimeError(f"set-up of {path.name} failed")
+    from smc_tpu_torch.ops import kernels
     A, B, C, D, Q, Z, d, H, data = inputs
+    lib = kernels.typed(path, f"dsge_ns{n_s}")
+    kernels.prepare(lib, f"dsge_ns{n_s}", A.device)
     n = A.shape[-1]
     X = torch.empty((n_s, n_s, n), dtype=A.dtype, device=A.device)
     M = torch.empty((n_s, n_k, n), dtype=A.dtype, device=A.device)
@@ -105,7 +99,7 @@ def main(argv=None) -> int:
         sys_np, data = synthetic_system(n_s, n_k, chip_smoke.SHAPES_N)
         inputs = tuple(torch.as_tensor(x, device=dev)
                        for x in (*sys_np, data))
-    _, _, flags = _build.CUDA_LIBRARIES[f"dsge_ns{n_s}"]
+    flags = _build.CUDA_LIBRARIES[f"dsge_ns{n_s}"].flags
     libs = {"other": build_tree(args.other.resolve(), "dsge_kernels.cu",
                                 f"libsmc_dsge_other_ns{n_s}", flags),
             "this": _build.build_cuda_library(f"dsge_ns{n_s}")}

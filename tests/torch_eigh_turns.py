@@ -50,22 +50,23 @@ def build_other(csrc: Path, two_part: bool):
         out = _build.build_cuda_library("eigh")
     else:
         out = build_tree(csrc, "eigh_kernel.cu", "libsmc_eigh_other",
-                         _build.CUDA_LIBRARIES["eigh"][2])
-    return _launcher(ctypes.CDLL(str(out)), csrc, two_part), out
+                         _build.CUDA_LIBRARIES["eigh"].flags)
+    return _launcher(out, csrc, two_part), out
 
 
-def _launcher(lib, csrc: Path, two_part: bool):
-    """launch(a): the bare launch of lib's kernel on a stack a [batch, k,
-    k], with its outputs (lam, U) allocated once per stack."""
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.smc_eigh.argtypes = ([I, L, I, L] if two_part else [I, L]) + [P] * 5
-    lib.smc_eigh.restype = I
-    lib.smc_eigh_prepare.restype = I
+def _launcher(path: Path, csrc: Path, two_part: bool):
+    """launch(a): the bare launch of the kernel at `path` on a stack a
+    [batch, k, k], with its outputs (lam, U) allocated once per stack. A
+    two-part launcher has this checkout's C interface and is typed from
+    _build.CUDA_LIBRARIES; a one-part one takes its arguments as ctypes
+    values."""
+    import torch
+    from smc_tpu_torch.ops import kernels
+    lib = kernels.typed(path, "eigh") if two_part else ctypes.CDLL(str(path))
     if lib.smc_eigh_prepare() != 0:
         raise RuntimeError("the other kernel's set-up failed")
     shared_k = _shared_k(csrc)
-
-    import torch
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     outs = {}
 
     def launch(a):
@@ -77,12 +78,12 @@ def _launcher(lib, csrc: Path, two_part: bool):
             outs[a.data_ptr()] = (
                 torch.empty(a.shape[:-1], dtype=a.dtype, device=a.device),
                 torch.empty_like(a), work,
-                ((k, batch, k, 0) if two_part else (k, batch))
-                + (a.data_ptr(),))
+                ((k, batch, k, 0) if two_part else (I(k), L(batch)))
+                + (P(a.data_ptr()),))
         lam, u, work, head = outs[a.data_ptr()]
-        rc = lib.smc_eigh(*head, lam.data_ptr(), u.data_ptr(),
-                          None if work is None else work.data_ptr(),
-                          torch.cuda.current_stream().cuda_stream)
+        rc = lib.smc_eigh(*head, P(lam.data_ptr()), P(u.data_ptr()),
+                          P(None if work is None else work.data_ptr()),
+                          P(torch.cuda.current_stream().cuda_stream))
         if rc != 0:
             raise RuntimeError(f"kernel launch failed ({rc})")
         return lam, u

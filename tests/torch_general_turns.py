@@ -31,7 +31,6 @@ name and power limit, to FILE as JSON."""
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import sys
 from pathlib import Path
@@ -46,17 +45,10 @@ def launchers(path: Path, inputs):
     """(re(), kalman(), outputs): bare launches of the library's kernels on
     `inputs` into outputs allocated once."""
     import torch
-    from smc_tpu_torch.ops.cuda_dsge_general import SMEM_LIMIT
-    lib = ctypes.CDLL(str(path))
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.smc_general_re.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
-                                   ctypes.c_double, P]
-    lib.smc_general_kalman.argtypes = [I, I, I, P, P, P, P, P, P, P, I, P, L,
-                                       I, P, P]
-    lib.smc_general_prepare.argtypes = [I]
-    if lib.smc_general_prepare(SMEM_LIMIT) != 0:
-        raise RuntimeError(f"set-up of {path.name} failed")
+    from smc_tpu_torch.ops import kernels
     A, B, C, D, Q, Z, d, H, data = inputs
+    lib = kernels.typed(path, "dsge_general")
+    kernels.prepare(lib, "dsge_general", A.device)
     n_s, n_k, n_o, n = A.shape[0], D.shape[1], Z.shape[0], A.shape[-1]
     X = torch.empty((n_s, n_s, n), dtype=A.dtype, device=A.device)
     M = torch.empty((n_s, n_k, n), dtype=A.dtype, device=A.device)
@@ -176,7 +168,7 @@ def main(argv=None) -> int:
     from smc_tpu_torch import _build
     dev = torch.device("cuda", 0)
     inputs = inputs_for(args.shape, dev)
-    _, _, flags = _build.CUDA_LIBRARIES["dsge_general"]
+    flags = _build.CUDA_LIBRARIES["dsge_general"].flags
     libs = {"other": build_tree(args.other.resolve(),
                                 "dsge_general_kernels.cu",
                                 "libsmc_dsge_general_other", flags),

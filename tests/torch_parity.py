@@ -152,6 +152,14 @@ def synthetic_model(sys_np, device, likelihood_backend="kernel"):
         lambda th: pick(Q, th), likelihood_backend=likelihood_backend)
 
 
+def launches_since(before):
+    """The kernel launches counted since `before`, a copy of
+    ops/kernels.py LAUNCHES: {counter: launches} of the counters that
+    moved."""
+    from smc_tpu_torch.ops.kernels import LAUNCHES
+    return {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]}
+
+
 def normwise_rel(a, b):
     """Per particle max|a-b| / max|b| over a batch-last [r, c, N] pair."""
     import torch
@@ -166,27 +174,10 @@ class GeneralHostBuild:
     arithmetic on CPU tensors. Builds on first use (needs g++)."""
 
     def __init__(self):
-        import ctypes
         from smc_tpu_torch import _build
-        lib = ctypes.CDLL(str(_build.build_general_cpu_library()))
-        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.smc_general_re_cpu.argtypes = [I, I, P, P, P, P, P, P, P, L, I,
-                                           ctypes.c_double]
-        lib.smc_general_re_cpu.restype = I
-        lib.smc_general_kalman_cpu.argtypes = [I, I, I, P, P, P, P, P, P, P,
-                                               I, P, L, I, P]
-        lib.smc_general_kalman_cpu.restype = I
-        lib.smc_general_re_smem_cpu.argtypes = [I, I]
-        lib.smc_general_re_smem_cpu.restype = L
-        lib.smc_general_kalman_smem_cpu.argtypes = [I, I, I, I]
-        lib.smc_general_kalman_smem_cpu.restype = L
-        lib.smc_general_gj_cpu.argtypes = [I, I, P, P]
-        lib.smc_general_gj_cpu.restype = I
-        lib.smc_general_psd_cpu.argtypes = [I, I, P, P, P, P, L]
-        lib.smc_general_psd_cpu.restype = I
-        lib.smc_general_quot_cpu.argtypes = [P, P, P, L]
-        lib.smc_general_quot_cpu.restype = I
-        self.lib = lib
+        from smc_tpu_torch.ops import kernels
+        self.lib = kernels.typed(_build.build_cpu_library("dsge_general"),
+                                 "dsge_general", host=True)
 
     def re(self, A, B, C, D):
         import torch
