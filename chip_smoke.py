@@ -31,7 +31,8 @@ smc_tpu_torch.smc on the card, then the rest of smc()'s paths:
       kernel between them: that kernel against its plain version, the
       whole likelihood against the plain route, and the Kalman kernel on
       rows of 16 timed on the model's prior and posterior draws and on
-      synthetic draws.
+      synthetic draws (with --other, in turns against another tree's
+      build, outputs compared bit for bit).
 
 Before the main path, the shape phase holds both DSGE kernels at every
 (n_state, n_shock) of their domain (1..8 each, n_obs 3) against their plain
@@ -50,6 +51,8 @@ mesh on the card runs the host loop, by the same choice; (d) checkpoints,
 so it runs the host loop too.
 
     python3 chip_smoke.py                 # all phases
+    python3 chip_smoke.py --other DIR     # all phases; (l) also times DIR's
+                                          # Kalman kernel (another csrc/)
     python3 chip_smoke.py --mesh-only     # the build, the AS main path and
                                           # phase (i) alone (i.3 on every
                                           # card: --chips 4)
@@ -739,6 +742,9 @@ GEN_STATES = (1, 9, 17, 37, 64)
 GEN_OBS = (1, 2, 3, 7)
 GEN_SHOCK = 3
 GEN_N = 2_048
+# the Kalman kernel's blocks an SM at SW's shape (rows of 8) and sw_pi_fg's
+# (rows of 16)
+KALMAN_BLOCKS = {(37, 7, 7): 3, (44, 14, 14): 2}
 # one SW likelihood call at the reference's production size
 SW_LARGE_N = 12_000
 
@@ -972,6 +978,22 @@ def general_phase(dev, ptxas):
     if regs["re"] is None or \
             "0 bytes spill stores, 0 bytes spill loads" not in regs["re"]:
         raise RuntimeError(f"re_general_kernel<256> spills: {regs['re']}")
+    # the Kalman kernel's blocks an SM at SW's and sw_pi_fg's shapes: three
+    # on rows of 8, two on rows of 16 (the tile without the observations
+    # and 128 registers let the second in)
+    blocks = {shape: g.kalman_blocks_per_sm(*shape, device=dev)
+              for shape in KALMAN_BLOCKS}
+    kal_regs = {name: ptxas.get(name) for name in
+                ("kalman_general_kernel<256,8>",
+                 "kalman_general_kernel<256,16>")}
+    shown = ", ".join(f"{s} {b} (want {KALMAN_BLOCKS[s]})"
+                      for s, b in blocks.items())
+    print(f"# general Kalman kernel blocks an SM: {shown}; "
+          f"kalman_general_kernel<256,16> "
+          f"{kal_regs['kalman_general_kernel<256,16>']}")
+    if blocks != KALMAN_BLOCKS:
+        raise RuntimeError(f"the Kalman kernel holds {blocks} blocks an SM, "
+                           f"not {KALMAN_BLOCKS}")
 
     # AS-2obs's shape (n_state 6: the 64-thread block; n_obs 2: Cholesky)
     _, as_in = inputs(as_dsge, as_dsge.an_schorfheide_parameters(),
@@ -1038,7 +1060,10 @@ def general_phase(dev, ptxas):
         dict(name="kalman_general", route="cuda", source=src,
              replaces="smc_tpu/models/dsge.py:351", max_abs_err=ll_abs,
              ms=kal_ms, plain_ms=kal_plain, bound_ms=kal_bound,
-             bound_by=kal_by, library_ms=None),
+             bound_by=kal_by, library_ms=None,
+             blocks_per_sm={",".join(map(str, s)): b
+                            for s, b in blocks.items()},
+             ptxas=kal_regs),
     ]
 
 
@@ -1779,6 +1804,42 @@ def kalman_turns(sets, reps=3):
     return {name: sum(t) / len(t) for name, t in times.items()}
 
 
+def kalman_other_turns(sets, other, reps=2):
+    """The sets' Kalman kernel calls (bare launches, tests/
+    torch_general_turns.py) of this checkout's build and of the build of
+    `other`, another csrc/ tree, in turns (other, this, this, other): one
+    line a set with both builds' times and whether their outputs are equal
+    bit for bit."""
+    import torch
+    from torch_general_turns import build_other, kalman_launcher, library
+    from torch_turns import turns
+    from smc_tpu_torch import _build
+    paths = {"other": build_other(other),
+             "this": _build.build_cuda_library("dsge_general")}
+    for name, path in paths.items():
+        for line in ptxas_lines(path.with_suffix(".log").read_text()):
+            if line.startswith("kalman_general_kernel<256,16>"):
+                print(f"# (l) ptxas {name}: {line}")
+    for set_name, (X, M, Q, Z, d, H, y, ok) in sets.items():
+        fns, outs = {}, {}
+        for name, path in paths.items():
+            outs[name] = torch.empty(X.shape[-1], dtype=X.dtype,
+                                     device=X.device)
+            fns[name] = kalman_launcher(library(path, X.device), X, M, Q, Z,
+                                        d, H, y, ok, outs[name])
+            fns[name]()
+        torch.cuda.synchronize()
+        equal = torch.equal(outs["this"], outs["other"])
+        t = turns(fns, reps)
+        ms = {name: statistics.mean(b for b, _ in t[name]) for name in t}
+        shown = {name: ", ".join(f"{b:.4f}/{c:.4f}" for b, c in t[name])
+                 for name in t}
+        print(f"# (l) kalman {set_name} in turns (other, this, this, other; "
+              f"ms/graph ms): this {shown['this']}, other "
+              f"{shown['other']}; other/this {ms['other'] / ms['this']:.4f}; "
+              f"outputs bitwise equal: {equal}")
+
+
 def kalman_work_line(name, inputs, ms):
     """One set's line: ok draws, filter steps and the share of ok draws the
     divergence guards cut short, doubling steps, the kernel's time and its
@@ -1808,7 +1869,7 @@ def kalman_work_line(name, inputs, ms):
     return per_step
 
 
-def sw_pi_fg_phase(dev, ptxas):
+def sw_pi_fg_phase(dev, ptxas, other=None):
     """(l) sw_pi_fg-4k: Smets-Wouters with FRBNY m1002's inflation target
     and forward guidance (44 states, 14 shocks, 14 observables) at SW's
     configuration through the general route (the RE kernel, the
@@ -1823,8 +1884,9 @@ def sw_pi_fg_phase(dev, ptxas):
     against the plain reference, no more drift than the plain route's),
     and the Kalman kernel timed in turns on
     the model's prior and posterior draws and on synthetic draws
-    (kalman_sets). Returns the kernels-line entry of the expectation-rows
-    kernel."""
+    (kalman_sets), and with `other` (another csrc/ tree) against that
+    tree's build (kalman_other_turns). Returns the kernels-line entry of
+    the expectation-rows kernel."""
     import numpy as np
     import torch
     import reference_sw_pi_fg
@@ -1942,6 +2004,11 @@ def sw_pi_fg_phase(dev, ptxas):
     times = kalman_turns(sets)
     for name, inputs in sets.items():
         kalman_work_line(name, inputs, times[name])
+    if other is None:
+        print("# (l) kalman against another tree's build: not run, no "
+              "--other")
+    else:
+        kalman_other_turns(sets, other)
     return dict(name="expectation_rows", route="cuda",
                 source="smc_tpu_torch/csrc/dsge_expectations.cu",
                 replaces=None, max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
@@ -2721,6 +2788,10 @@ def main(argv=None) -> int:
                     help="run the kernel build, the AS main path and phase "
                          "(i) only (the particle mesh; on a machine with "
                          "several cards, one NCCL rank per card)")
+    ap.add_argument("--other", type=os.path.abspath, default=None,
+                    help="another csrc/ tree (an older commit's, unpacked "
+                         "with git archive): phase (l) times its Kalman "
+                         "kernel against this checkout's in turns")
     args = ap.parse_args(argv)
 
     sys.path.insert(0, HERE)
@@ -2769,7 +2840,7 @@ def main(argv=None) -> int:
     checkpoint_phase(dev, lin, res_a)
     tempered_phase(dev, lin)
     sw_launches = sw_phase(dev)
-    expectations = sw_pi_fg_phase(dev, ptxas)
+    expectations = sw_pi_fg_phase(dev, ptxas, args.other)
     res_g, wall_g = as2obs_phase(dev)
     capm_phase(dev)
     mesh_phase(dev, res_as, wall_as)

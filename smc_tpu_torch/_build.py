@@ -185,7 +185,8 @@ CUDA_LIBRARIES = {
                  "smc_general_kalman": ("kalman_general",
                                         (_I, _I, _I, *_KALMAN_ARGS))},
         queries={"smc_general_re_smem": (_L, (_I, _I)),
-                 "smc_general_kalman_smem": (_L, (_I, _I, _I, _I))},
+                 "smc_general_kalman_smem": (_L, (_I, _I, _I, _I)),
+                 "smc_general_kalman_blocks_per_sm": (_I, (_I, _I, _I))},
         host={"smc_general_re_smem_cpu": (_L, (_I, _I)),
               "smc_general_kalman_smem_cpu": (_L, (_I, _I, _I, _I)),
               "smc_general_gj_cpu": (_I, (_I, _I, _P, _P)),

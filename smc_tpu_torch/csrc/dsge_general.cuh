@@ -118,7 +118,9 @@ SMC_HD constexpr long long re_doubles(int n, int k) {
 // M; Z U is formed in the next F's place), the innovation solve [n_obs, 1 + n_obs], 4 scalars and the
 // reduction slots; then a region used first by the doubling (A_k, A_{k+1},
 // and a temporary that also holds Q R'), then by the filter (K and [W | s]
-// twice each, T W); then the observations [n_obs, n_t].
+// twice each, T W). The observations stay in global memory: every block
+// reads the same n_obs x n_t of them, which the caches hold, and without
+// them two of sw_pi_fg's tiles fit an SM.
 SMC_HD constexpr long long kalman_union(int n, int k, int o) {
   return 2LL * n * n + (n * n > k * n ? (long long)n * n : (long long)k * n) >
                  5LL * n * o + 2 * n
@@ -130,13 +132,13 @@ SMC_HD constexpr long long kalman_fixed(int n, int o) {
   return 2LL * n * n + (long long)o * n + 2 * o + 10LL * o * o +
          (long long)o * (o + 1) + 4 + red_doubles(team_for(n));
 }
-SMC_HD constexpr long long kalman_doubles(int n, int k, int o, int n_t) {
-  return kalman_fixed(n, o) + kalman_union(n, k, o) + (long long)o * n_t;
+SMC_HD constexpr long long kalman_doubles(int n, int k, int o) {
+  return kalman_fixed(n, o) + kalman_union(n, k, o);
 }
 
 static_assert(8 * re_doubles(kMaxState, kMaxShock) <= kSmemLimit,
               "the RE tile at the largest shape passes the shared memory");
-static_assert(8 * kalman_doubles(kMaxState, kMaxShock, kMaxObs, 1) <=
+static_assert(8 * kalman_doubles(kMaxState, kMaxShock, kMaxObs) <=
                   kSmemLimit,
               "the Kalman tile at the largest shape passes the shared memory");
 
@@ -1232,15 +1234,18 @@ SMC_HD inline void warp_store(Lanes<double[Rows<R>::kRhs], kWarp>& x,
 // Thread u of nb over C [rows][cols] (cols <= nb), C[r][c] = the sum over l
 // < len of a(r)[l] b[l * bl + c * bc], formed in index order from 0: column
 // u % cols, rows u / cols + g k (g = nb / cols), two rows at a time (two
-// independent sums, one chain of latency); epi(r, c, sum) stores.
-template <class RowOf, class Epi>
+// independent sums, one chain of latency); epi(r, c, sum, x) stores, x being
+// what pre(r, c) read before the sums began (a load from global memory that
+// would otherwise wait in the epilogue).
+template <class RowOf, class Pre, class Epi>
 SMC_HD inline void product(int u, int nb, int rows, int cols, int len,
-                           RowOf a, const double* b, int bl, int bc,
+                           RowOf a, const double* b, int bl, int bc, Pre pre,
                            Epi epi) {
   const int g = nb / cols, c = u % cols;
   if (u / cols >= g) return;
   for (int r0 = u / cols; r0 < rows; r0 += 2 * g) {
     const int r1 = r0 + g < rows ? r0 + g : r0;
+    const double x0 = pre(r0, c), x1 = pre(r1, c);
     const double* a0 = a(r0);
     const double* a1 = a(r1);
     double s0 = 0.0, s1 = 0.0;
@@ -1249,9 +1254,18 @@ SMC_HD inline void product(int u, int nb, int rows, int cols, int len,
       s0 += a0[l] * x;
       s1 += a1[l] * x;
     }
-    epi(r0, c, s0);
-    if (r1 != r0) epi(r1, c, s1);
+    epi(r0, c, s0, x0);
+    if (r1 != r0) epi(r1, c, s1, x1);
   }
+}
+// the same with nothing read ahead: epi(r, c, sum)
+template <class RowOf, class Epi>
+SMC_HD inline void product(int u, int nb, int rows, int cols, int len,
+                           RowOf a, const double* b, int bl, int bc,
+                           Epi epi) {
+  product(u, nb, rows, cols, len, a, b, bl, bc,
+          [](int, int) { return 0.0; },
+          [=](int r, int c, double s, double) { epi(r, c, s); });
 }
 
 // ---------------------------------------------------------------------------
@@ -1259,9 +1273,9 @@ SMC_HD inline void product(int u, int nb, int rows, int cols, int len,
 // ---------------------------------------------------------------------------
 
 // Particle p of nb: T [n, n, nb], R [n, k, nb], Q [k, k, nb], Z [o, n, nb],
-// d [o, nb], H [o, o, nb]; ys the observations [o][n_t] in the tile's last
-// o n_t doubles (the caller stages them); ok [nb] or null -> out[p], -inf
-// for a rejected particle. tile: kalman_doubles(n, k, o, n_t).
+// d [o, nb], H [o, o, nb], ys the observations [o][n_t] (global memory, read
+// by the product warps a step ahead); ok [nb] or null -> out[p], -inf for a
+// rejected particle. tile: kalman_doubles(n, k, o).
 //
 // A filter step, by role (R: the rows of the innovation warp's layout, the
 // least of 4, 8, 16 that holds n_obs):
@@ -1274,15 +1288,16 @@ SMC_HD inline void product(int u, int nb, int rows, int cols, int len,
 //                   verdict;
 //   product warps   wait for the solution; form [W' | s'] = T [W | s] - K
 //                   F^-1 [Z W | -v], K' = K + (T W)(M W'Z'), and the next
-//                   step's v and Z W; hand them over.
+//                   step's v and Z W (its observations loaded before the
+//                   sums, so the load is off the hand-off); hand them over.
 // F, M, K, [W | s] and Z W are kept twice: what the step reads and what it
 // forms.
 template <int N, int Ro>
 SMC_HD void kalman_block(const double* T, const double* R, const double* Q,
                          const double* Z, const double* d, const double* H,
-                         int n_t, const unsigned char* ok, long long nb,
-                         long long p, int n, int k, int o, int lyap_iter,
-                         double* out, double* tile) {
+                         const double* ys, int n_t, const unsigned char* ok,
+                         long long nb, long long p, int n, int k, int o,
+                         int lyap_iter, double* out, double* tile) {
   static_assert(N > kWarp, "warp 0 and at least one product warp");
   using W = Rows<Ro>;
   if (ok != nullptr && !ok[p]) {
@@ -1312,7 +1327,6 @@ SMC_HD void kalman_block(const double* T, const double* R, const double* Q,
   enum { kFlag, kCap, kLogdet, kTotal };
   double* red = sc + 4;
   double* un = red + red_doubles(N);
-  const double* ys = tile + kalman_fixed(n, o) + kalman_union(n, k, o);
   // the doubling's buffers
   double* Ak = un;
   double* An = Ak + nn;
@@ -1473,18 +1487,25 @@ SMC_HD void kalman_block(const double* T, const double* R, const double* Q,
       }
     }
   }
-  // [Z W | Z s] for v and Z W (no v without observations: ys is empty)
+  // [Z W | Z s] from [W | s] (product warp thread w): Z W into zw, and
+  // step s's v = (y_s - d) - Z s (none at s = n_t: no data left), y_s
+  // loaded before the sums
   const auto z_row = [=](int a) { return (const double*)(Zs + a * n); };
   const auto t_row = [=](int i) { return (const double*)(Ts + i * n); };
+  const auto zw_v = [=](int w, const double* Wx, double* zw, int s) {
+    product(w, N - kWarp, o, o1, n, z_row, Wx, o1, 1,
+            [=](int a, int c) {
+              return c == o && s < n_t ? ys[a * n_t + s] : 0.0;
+            },
+            [=](int a, int c, double u, double y) {
+              if (c < o)
+                zw[a * o + c] = u;
+              else if (s < n_t)
+                v[a] = (y - ds[a]) - u;
+            });
+  };
   SMC_TEAM(N, t) {
-    if (t >= kWarp)
-      product(t - kWarp, N - kWarp, o, o1, n, z_row, Ws, o1, 1,
-              [=](int a, int c, double u) {
-                if (c < o)
-                  ZW[a * o + c] = u;
-                else if (n_t > 0)
-                  v[a] = (ys[a * n_t] - ds[a]) - u;
-              });
+    if (t >= kWarp) zw_v(t - kWarp, Ws, ZW, 0);
   }
   block_sync();
 
@@ -1680,14 +1701,7 @@ SMC_HD void kalman_block(const double* T, const double* R, const double* Q,
       }
       if (more) {
         SMC_TEAM(N, t) {
-          if (t >= kWarp)
-            product(t - kWarp, N - kWarp, o, o1, n, z_row, Wn, o1, 1,
-                    [=](int a, int c, double u) {
-                      if (c < o)
-                        zn[a * o + c] = u;
-                      else
-                        v[a] = (ys[a * n_t + step + 1] - ds[a]) - u;
-                    });
+          if (t >= kWarp) zw_v(t - kWarp, Wn, zn, step + 1);
         }
         signal_post<N>(kZWReady);
       }

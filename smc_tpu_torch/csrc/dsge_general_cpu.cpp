@@ -47,8 +47,7 @@ extern "C" long long smc_general_re_smem_cpu(int n, int k) {
 
 extern "C" long long smc_general_kalman_smem_cpu(int n, int k, int o,
                                                  int n_t) {
-  return in_domain(n, k, o) && n_t >= 0 ? 8 * kalman_doubles(n, k, o, n_t)
-                                        : -1;
+  return in_domain(n, k, o) && n_t >= 0 ? 8 * kalman_doubles(n, k, o) : -1;
 }
 
 // One Gauss-Jordan elimination of W [n][w] in place (columns n..w-1 then
@@ -113,11 +112,9 @@ extern "C" int smc_general_kalman_cpu(int n, int k, int o, const double* T,
                                       long long nb, int lyap_iter,
                                       double* out) {
   if (!in_domain(n, k, o) || n_t < 0 || nb < 0 ||
-      8 * kalman_doubles(n, k, o, n_t) > kSmemLimit)
+      8 * kalman_doubles(n, k, o) > kSmemLimit)
     return -1;
-  std::vector<double> tile(kalman_doubles(n, k, o, n_t));
-  double* ys = tile.data() + kalman_fixed(n, o) + kalman_union(n, k, o);
-  for (int i = 0; i < o * n_t; ++i) ys[i] = data[i];
+  std::vector<double> tile(kalman_doubles(n, k, o));
   const auto block = team_for(n) == kSmallTeam
                          ? (rows_for(o) == 4   ? kalman_block<kSmallTeam, 4>
                             : rows_for(o) == 8 ? kalman_block<kSmallTeam, 8>
@@ -126,7 +123,7 @@ extern "C" int smc_general_kalman_cpu(int n, int k, int o, const double* T,
                             : rows_for(o) == 8 ? kalman_block<kLargeTeam, 8>
                                                : kalman_block<kLargeTeam, 16>);
   for (long long p = 0; p < nb; ++p)
-    block(T, R, Q, Z, d, H, n_t, ok, nb, p, n, k, o, lyap_iter, out,
+    block(T, R, Q, Z, d, H, data, n_t, ok, nb, p, n, k, o, lyap_iter, out,
           tile.data());
   return 0;
 }

@@ -54,12 +54,13 @@ re_general_kernel<kLargeTeam>(const double* __restrict__ A,
 }
 
 // The Kalman kernel's register cap, from the threads an SM is to hold: up to
-// n_obs 8, 768 (three large blocks, as many as Smets-Wouters' 70 kB tile
+// n_obs 8, 768 (three large blocks, as many as Smets-Wouters' 62 kB tile
 // lets share an SM), 80 registers a thread; beyond, the wider innovation
-// rows take more: 256 threads, no cap. Without a cap ptxas takes more than
-// 80, and fewer blocks fit.
+// rows take more: 512 (two large blocks, as many as sw_pi_fg's 100 kB tile
+// lets share an SM), 128 registers. Without a cap ptxas takes more (159 at
+// R = 16), and fewer blocks fit.
 constexpr int kalman_threads_per_sm(int R) {
-  return R <= 8 ? 3 * kLargeTeam : kLargeTeam;
+  return R <= 8 ? 3 * kLargeTeam : 2 * kLargeTeam;
 }
 
 template <int N, int R>
@@ -75,16 +76,43 @@ kalman_general_kernel(const double* __restrict__ T,
                       int n, int k, int o, int lyap_iter,
                       double* __restrict__ out) {
   extern __shared__ __align__(16) double smem[];
-  double* ys = smem + kalman_fixed(n, o) + kalman_union(n, k, o);
-  for (int i = threadIdx.x; i < o * n_t; i += N) ys[i] = data[i];
-  __syncthreads();
-  kalman_block<N, R>(T, Rm, Q, Z, d, H, n_t, ok, nb, (long long)blockIdx.x, n,
-                     k, o, lyap_iter, out, smem);
+  kalman_block<N, R>(T, Rm, Q, Z, d, H, data, n_t, ok, nb,
+                     (long long)blockIdx.x, n, k, o, lyap_iter, out, smem);
 }
 
 bool in_domain(int n, int k, int o) {
   return n >= 1 && n <= kMaxState && k >= 1 && k <= kMaxShock && o >= 1 &&
          o <= kMaxObs;
+}
+
+// the Kalman instantiation that shape (n, o) takes, and its block size
+using KalmanKernel = void (*)(const double*, const double*, const double*,
+                              const double*, const double*, const double*,
+                              const double*, int, const unsigned char*,
+                              long long, int, int, int, int, double*);
+struct KalmanLaunch {
+  KalmanKernel kernel;
+  int threads;
+};
+KalmanLaunch kalman_for(int n, int o) {
+  const bool small = team_for(n) == kSmallTeam;
+  switch (rows_for(o)) {
+    case 4:
+      return small ? KalmanLaunch{kalman_general_kernel<kSmallTeam, 4>,
+                                  kSmallTeam}
+                   : KalmanLaunch{kalman_general_kernel<kLargeTeam, 4>,
+                                  kLargeTeam};
+    case 8:
+      return small ? KalmanLaunch{kalman_general_kernel<kSmallTeam, 8>,
+                                  kSmallTeam}
+                   : KalmanLaunch{kalman_general_kernel<kLargeTeam, 8>,
+                                  kLargeTeam};
+    default:
+      return small ? KalmanLaunch{kalman_general_kernel<kSmallTeam, 16>,
+                                  kSmallTeam}
+                   : KalmanLaunch{kalman_general_kernel<kLargeTeam, 16>,
+                                  kLargeTeam};
+  }
 }
 
 }  // namespace
@@ -118,8 +146,22 @@ extern "C" long long smc_general_re_smem(int n, int k) {
 }
 
 extern "C" long long smc_general_kalman_smem(int n, int k, int o, int n_t) {
-  return in_domain(n, k, o) && n_t >= 0 ? 8 * kalman_doubles(n, k, o, n_t)
-                                        : -1;
+  return in_domain(n, k, o) && n_t >= 0 ? 8 * kalman_doubles(n, k, o) : -1;
+}
+
+// The Kalman kernel's blocks an SM of the current device at shape (n, k, o),
+// for the instantiation and tile that smc_general_kalman launches (the
+// occupancy calculator's answer; smc_general_prepare first), or -1 outside
+// the domain or on a CUDA error.
+extern "C" int smc_general_kalman_blocks_per_sm(int n, int k, int o) {
+  const long long bytes = smc_general_kalman_smem(n, k, o, 0);
+  if (bytes < 0 || bytes > kSmemLimit) return -1;
+  const KalmanLaunch kl = kalman_for(n, o);
+  int blocks = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &blocks, kl.kernel, kl.threads, (size_t)bytes) == cudaSuccess
+             ? blocks
+             : -1;
 }
 
 extern "C" int smc_general_re(int n, int k, const double* A, const double* B,
@@ -149,21 +191,11 @@ extern "C" int smc_general_kalman(int n, int k, int o, const double* T,
   const long long bytes = smc_general_kalman_smem(n, k, o, n_t);
   if (bytes < 0 || bytes > kSmemLimit || nb < 1 || nb > 0x7fffffffLL)
     return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SMC_LAUNCH(NT, RO)                                                  \
-  kalman_general_kernel<NT, RO><<<(unsigned int)nb, NT, bytes, s>>>(        \
-      T, R, Q, Z, d, H, data, n_t, ok, nb, n, k, o, lyap_iter, out)
-  const bool small = team_for(n) == kSmallTeam;
-  switch (rows_for(o)) {
-    case 4:
-      if (small) SMC_LAUNCH(kSmallTeam, 4); else SMC_LAUNCH(kLargeTeam, 4);
-      break;
-    case 8:
-      if (small) SMC_LAUNCH(kSmallTeam, 8); else SMC_LAUNCH(kLargeTeam, 8);
-      break;
-    default:
-      if (small) SMC_LAUNCH(kSmallTeam, 16); else SMC_LAUNCH(kLargeTeam, 16);
-  }
-#undef SMC_LAUNCH
+  const KalmanLaunch kl = kalman_for(n, o);
+  const KalmanKernel kernel = kl.kernel;
+  kernel<<<(unsigned int)nb, kl.threads, bytes,
+           static_cast<cudaStream_t>(stream)>>>(T, R, Q, Z, d, H, data, n_t,
+                                                ok, nb, n, k, o, lyap_iter,
+                                                out);
   return (int)cudaGetLastError();
 }

@@ -323,10 +323,11 @@ class LinearDSGE:
     Chandrasekhar filter, it runs hand-written kernels: those of "kernel"
     below inside their domain, else, in theirs, the general kernels
     (ops/cuda_dsge_general.py: n_state and n_shock up to 64, n_obs up to 16,
-    the observations within a block's shared memory); a failed build or
-    launch raises. The Riccati filter (use_chand_recursion=False), shapes
-    past both domains and every CPU tensor run the bl_* functions above
-    (`likelihood_route` decides, from the shapes and flags alone). "kernel"
+    the tiles within a block's shared memory, data of any length); a
+    failed build or launch raises. The Riccati filter
+    (use_chand_recursion=False), shapes past both domains and every CPU
+    tensor run the bl_* functions above (`likelihood_route` decides, from
+    the shapes and flags alone). "kernel"
     goes through
     ops/cuda_dsge.py: the hand-written CUDA kernels
     for CUDA tensors, their plain versions for CPU tensors. It raises

@@ -11,20 +11,23 @@ those into a few fused device loops; the port's plain versions
 
 Domain (`in_domain`): 1 <= n_state <= GENERAL_MAX_STATE, 1 <= n_shock <=
 GENERAL_MAX_SHOCK, 1 <= n_obs <= GENERAL_MAX_OBS (_build sets them, the
-compiler checks the largest tiles), and both tiles, the Kalman tile with
-the T observations, within a block's shared memory (_build.SMEM_LIMIT,
-also passed to the compiler). Dispatch, as ops/cuda_dsge.py:
-a CPU tensor runs the plain PyTorch version; a CUDA tensor launches the
-kernel, or raises. Shapes outside the domain raise ValueError on every
-device. There is no fallback. The kernels launch through ops/kernels.py,
-which counts them under "re_general" and "kalman_general". The wrappers
-read nothing back from the card and set no attribute after the first call
-on a device, so the fused recursion captures them.
+compiler checks the largest tiles), and both tiles within a block's shared
+memory (_build.SMEM_LIMIT, also passed to the compiler), any number of
+observations: the Kalman kernel reads them from global memory. Dispatch,
+as ops/cuda_dsge.py: a CPU tensor runs the plain PyTorch version; a CUDA
+tensor launches the kernel, or raises. Shapes outside the domain raise
+ValueError on every device. There is no fallback. The kernels launch
+through ops/kernels.py, which counts them under "re_general" and
+"kalman_general". The wrappers read nothing back from the card and set no
+attribute after the first call on a device, so the fused recursion
+captures them.
 
 The kernels (csrc/dsge_general_kernels.cu, bodies in
 csrc/dsge_general.cuh) run one block per particle with the particle's
 matrices in shared memory (the RE tile 78 kB at Smets-Wouters' n_state 37),
-a block of 64 threads up to n_state 16 and 256 beyond. In the Kalman
+a block of 64 threads up to n_state 16 and 256 beyond; the Kalman kernel
+holds three such blocks an SM up to n_obs 8 and two beyond
+(`kalman_blocks_per_sm` asks the card). In the Kalman
 filter's recursion warp 0 does the n_obs-sized algebra (the Cholesky
 factor, log det, solves, M-update and guards) with the rows in its lanes'
 registers, exchanged by shuffles, and the other warps the n_state-sized
@@ -34,6 +37,8 @@ PERF.md holds the measured times.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -66,16 +71,16 @@ def re_smem_bytes(n_s: int, n_k: int) -> int:
     return 8 * (n_s * w + 4 * n_s * n_s + n_s + w + _red(n_s))
 
 
-def kalman_smem_bytes(n_s: int, n_k: int, n_o: int, n_t: int) -> int:
+def kalman_smem_bytes(n_s: int, n_k: int, n_o: int) -> int:
     """The Kalman kernel's tile (kalman_doubles): T, P, Z, d and v, ten
     n_obs-square matrices, the innovation solve and 4 scalars, the
     doubling's buffers or the filter's [n_s, n_o] ones (K and [W | s] twice,
-    T W), and the n_o x n_t observations."""
+    T W). Not the observations: they stay in global memory."""
     fixed = (2 * n_s * n_s + n_o * n_s + 2 * n_o + 10 * n_o * n_o
              + n_o * (n_o + 1) + 4 + _red(n_s))
     union = max(2 * n_s * n_s + max(n_s * n_s, n_k * n_s),
                 5 * n_s * n_o + 2 * n_s)
-    return 8 * (fixed + union + n_o * n_t)
+    return 8 * (fixed + union)
 
 
 def in_domain(n_s: int, n_k: int, n_o: int, n_t: int) -> bool:
@@ -85,7 +90,7 @@ def in_domain(n_s: int, n_k: int, n_o: int, n_t: int) -> bool:
     return (1 <= n_s <= MAX_STATE and 1 <= n_k <= MAX_SHOCK
             and 1 <= n_o <= MAX_OBS and n_t >= 0
             and re_smem_bytes(n_s, n_k) <= SMEM_LIMIT
-            and kalman_smem_bytes(n_s, n_k, n_o, n_t) <= SMEM_LIMIT)
+            and kalman_smem_bytes(n_s, n_k, n_o) <= SMEM_LIMIT)
 
 
 def _domain(n_s, n_k, n_o=1, n_t=0):
@@ -160,13 +165,40 @@ def kalman_chandrasekhar(T_mat, R_mat, Q, Z, d_obs, H, data, ok=None,
     if n == 0:
         return out
     _same_bytes(load(_LIB, dev).smc_general_kalman_smem(n_s, n_k, n_o, n_t),
-                kalman_smem_bytes(n_s, n_k, n_o, n_t), "Kalman")
+                kalman_smem_bytes(n_s, n_k, n_o), "Kalman")
     launch(_LIB, "smc_general_kalman", dev, n_s, n_k, n_o, T_mat.data_ptr(),
            R_mat.data_ptr(), Q.data_ptr(), Z.data_ptr(), d_obs.data_ptr(),
            H.data_ptr(), data.data_ptr(), n_t,
            None if ok is None else ok.data_ptr(), n, int(lyap_iter),
            out.data_ptr())
     return out
+
+
+@functools.cache
+def _blocks_per_sm(device_index: int, n_s: int, n_k: int, n_o: int) -> int:
+    dev = torch.device("cuda", device_index)
+    lib = load(_LIB, dev)
+    with torch.cuda.device(dev):
+        blocks = lib.smc_general_kalman_blocks_per_sm(n_s, n_k, n_o)
+    if blocks < 1:
+        raise RuntimeError(f"the Kalman kernel fits no block an SM at "
+                           f"({n_s}, {n_k}, {n_o}) ({blocks})")
+    return blocks
+
+
+def kalman_blocks_per_sm(n_s: int, n_k: int, n_o: int,
+                         device="cuda") -> int:
+    """How many blocks of the Kalman kernel an SM of `device` (a CUDA
+    device) holds at once at this shape: the occupancy calculator's answer
+    for the instantiation and tile the launch takes (its registers and
+    tile), asked once per device and shape. Particles in flight are this
+    times the SMs: the kernel is latency-bound, so this sets its rate."""
+    _domain(n_s, n_k, n_o)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for {dev}")
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return _blocks_per_sm(index, n_s, n_k, n_o)
 
 
 def dsge_loglike(A, B, C, D, Q, Z, d_obs, H, data, expectation_rows=()):

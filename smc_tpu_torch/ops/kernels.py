@@ -26,14 +26,18 @@ _loaded = {}        # library name -> typed card build
 _prepared = set()   # (library name, device index)
 
 
-def typed(path, name: str, host: bool = False) -> ctypes.CDLL:
+def typed(path, name: str, host: bool = False,
+          missing_ok: bool = False) -> ctypes.CDLL:
     """The library at `path` with every entry point that
     CUDA_LIBRARIES[name] declares for its card build (with `host`, its host
     build) typed: this checkout's build, or another tree's with the same C
-    interface."""
+    interface. With `missing_ok` the entries a build lacks (an older tree's,
+    built before they were declared) are left out instead of raising."""
     lib = ctypes.CDLL(str(path))
     for symbol, (restype, argtypes) in (
             _build.CUDA_LIBRARIES[name].entries(host).items()):
+        if missing_ok and not hasattr(lib, symbol):
+            continue
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = restype

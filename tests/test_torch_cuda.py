@@ -324,10 +324,9 @@ def test_general_kalman_at_sw_shape_matches_host_build(dev):
     assert_sw_loglh_close(got, want)
 
 
-def _sw_pi_fg_system(dev, n=256, seed=4):
+def _sw_pi_fg_draws(dev, n=256, seed=4):
     """n prior draws of models/sw_pi_fg.py (made on the CPU) and 4 within
-    1e-4 of its TRUE_PARAMS: its system (44 states, 14 shocks) on the
-    card."""
+    1e-4 of its TRUE_PARAMS, on the card."""
     from smc_tpu_torch.models import sw_pi_fg
     from smc_tpu_torch.params import ParamSpace
     from smc_tpu_torch.rng import TorchDraws
@@ -335,8 +334,13 @@ def _sw_pi_fg_system(dev, n=256, seed=4):
         TorchDraws(seed, "cpu"), n, device="cpu")
     near = sw_pi_fg.TRUE_PARAMS * (1.0 + 1e-4 * np.random.default_rng(1)
                                    .standard_normal((4, th.shape[1])))
-    th = torch.cat([th, torch.as_tensor(near)]).to(dev)
-    return sw_pi_fg._system(th)
+    return torch.cat([th, torch.as_tensor(near)]).to(dev)
+
+
+def _sw_pi_fg_system(dev, n=256, seed=4):
+    """_sw_pi_fg_draws' system (44 states, 14 shocks) on the card."""
+    from smc_tpu_torch.models import sw_pi_fg
+    return sw_pi_fg._system(_sw_pi_fg_draws(dev, n, seed))
 
 
 @pytest.mark.parametrize("model", ["sw", "sw_pi_fg"])
@@ -383,6 +387,74 @@ def test_general_kalman_across_n_obs_matches_host_build(dev, n_s, n_o):
     want = bl_kalman_loglike_chandrasekhar(*cpu)
     assert_loglh_close(got.cpu().numpy(), host.numpy())
     assert_loglh_close(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("shape,blocks", [((44, 14, 14), 2), ((37, 7, 7), 3)])
+def test_kalman_blocks_per_sm(dev, shape, blocks):
+    """The Kalman kernel's residency, which sets its rate (each particle a
+    chain of dependent steps): two of sw_pi_fg's blocks an SM on rows of 16
+    (its 100 kB tile without the observations, 128 registers), three of
+    SW's on rows of 8."""
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    assert g.kalman_blocks_per_sm(*shape, device=dev) == blocks
+
+
+def _kalman_rows16_inputs(shape):
+    """CPU inputs (X, M, Q, Z, d, H, data, ok) of the Kalman filter on rows
+    of 16: sw_pi_fg's (44, 14, 14), its expectation rows filled, over its
+    committed 156 quarters on 64 prior and 4 near-mode draws, or over n_t
+    quarters simulated at the mode on 33 draws within 1% of the mode (deep
+    in the prior's tail two exact float64 filters drift apart past SW's
+    1e-3 band, the more the longer the recursion: one of 33 prior draws
+    over 400 quarters, at -7.1e5 nats, read 3.0e-3 between the card and the
+    host build); else 33 synthetic systems at (n_s, n_k, n_o) over n_t
+    standard normal observations."""
+    from torch_parity import synthetic_system
+    from smc_tpu_torch.models import sw_pi_fg as fg
+    from smc_tpu_torch.models.dsge import bl_expectation_rows
+    n_s, n_k, n_o, n_t = shape
+    if (n_s, n_k, n_o) == (44, 14, 14):
+        th = (_sw_pi_fg_draws("cpu", n=64) if n_t == 156 else
+              torch.as_tensor(fg.TRUE_PARAMS * (1.0 + 1e-2 * np.random
+                                                .default_rng(5)
+                                                .standard_normal((33, 43)))))
+        X, M, ok = bl_solve_linear_re(*fg._system(th))
+        d, Z, H = fg._measurement(th)
+        Z = bl_expectation_rows(Z, X, fg.EXPECTATION_ROWS, ok)
+        data = (fg.load_sw_pi_fg_data() if n_t == 156
+                else fg.generate_sw_pi_fg_data(T=n_t))
+        return X, M, fg._shock_cov(th), Z, d, H, torch.as_tensor(data), ok
+    sys_np, _ = synthetic_system(n_s, n_k, 33, n_t=1, n_o=n_o)
+    A, B, C, D, Q, Z, d, H = (torch.as_tensor(x) for x in sys_np)
+    X, M, ok = bl_solve_linear_re(A, B, C, D)
+    data = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (n_o, n_t)))
+    return X, M, Q, Z, d, H, data, ok
+
+
+@pytest.mark.parametrize("shape", [(44, 14, 14, 156), (44, 14, 14, 400),
+                                   (64, 64, 16, 400)])
+def test_general_kalman_on_rows_of_16_matches_host_build(dev, shape):
+    """kalman_general_kernel<256, 16>, the observations read from global
+    memory a step ahead, over data of any length: at sw_pi_fg's shape over
+    its 156 quarters and 400, and at (64, 64, 16) over 400, whose tile
+    with the observations would not fit a block's shared memory; against
+    its host build and the plain version (SW's bands at sw_pi_fg's
+    shape)."""
+    from smc_tpu_torch.models.dsge import bl_kalman_loglike_chandrasekhar
+    from smc_tpu_torch.ops import cuda_dsge_general as g
+    *cpu, ok = _kalman_rows16_inputs(shape)
+    assert g.in_domain(*shape)
+    before = dict(LAUNCHES)
+    got = g.kalman_chandrasekhar(*(x.to(dev) for x in cpu),
+                                 ok=ok.to(dev)).cpu().numpy()
+    assert launches_since(before) == {"kalman_general": 1}
+    host = _host_build().kalman(*cpu, ok).numpy()
+    want = torch.where(ok, bl_kalman_loglike_chandrasekhar(*cpu),
+                       float("-inf")).numpy()
+    close = assert_sw_loglh_close if shape[0] == 44 else assert_loglh_close
+    close(got, host)
+    close(got, want)
 
 
 @pytest.mark.parametrize("n_s,n_o", [(5, 2), (5, 3), (20, 7), (20, 16)])

@@ -400,16 +400,18 @@ def test_kernel_division_is_ieee(body, kind):
 @pytest.mark.parametrize("n_s,n_k,n_o,n_t", [
     (1, 1, 1, 0), (6, 3, 2, 80), (17, 8, 3, 40), (37, 7, 7, 156),
     (37, 7, 7, 197), (64, 64, 16, 300), (64, 64, 16, 400), (64, 65, 1, 1),
-    (65, 7, 7, 10), (8, 2, 17, 10)])
+    (65, 7, 7, 10), (8, 2, 17, 10), (44, 14, 14, 5_000),
+    (6, 3, 3, 100_000)])
 def test_tile_sizes_are_the_kernels(body, n_s, n_k, n_o, n_t):
     """The wrapper decides a shape's route from its own copy of the tiles'
-    sizes: equal to the library's, and the domain is where they fit."""
+    sizes: equal to the library's, and the domain is where they fit, for
+    data of any length (the Kalman tile holds no observations)."""
     in_max = n_s <= 64 and n_k <= 64 and n_o <= 16
     re = body.lib.smc_general_re_smem_cpu(n_s, n_k)
     kal = body.lib.smc_general_kalman_smem_cpu(n_s, n_k, n_o, n_t)
     if in_max:
         assert re == cuda_dsge_general.re_smem_bytes(n_s, n_k)
-        assert kal == cuda_dsge_general.kalman_smem_bytes(n_s, n_k, n_o, n_t)
+        assert kal == cuda_dsge_general.kalman_smem_bytes(n_s, n_k, n_o)
     else:
         assert kal == -1
     assert cuda_dsge_general.in_domain(n_s, n_k, n_o, n_t) == (
@@ -421,7 +423,10 @@ def test_domain_covers_the_models():
     assert cuda_dsge_general.in_domain(37, 7, 7, 156)      # SW
     assert cuda_dsge_general.in_domain(37, 7, 7, 197)      # SW, real data
     assert cuda_dsge_general.in_domain(6, 3, 2, 80)        # AS-2obs
-    assert not cuda_dsge_general.in_domain(64, 64, 16, 400)
+    assert cuda_dsge_general.in_domain(44, 14, 14, 156)    # sw_pi_fg
+    # the largest shape over long data: the observations are not in a tile
+    assert cuda_dsge_general.in_domain(64, 64, 16, 400)
+    assert not cuda_dsge_general.in_domain(64, 65, 16, 10)  # the RE tile
     assert not cuda_dsge_general.in_domain(65, 3, 3, 10)
 
 
@@ -433,7 +438,7 @@ def test_domain_covers_the_models():
     ("plain", True, "cuda", (8, 8, 3, 80), "kernel"),
     ("plain", True, "cuda", (6, 3, 3, 7936), "kernel"),       # longest data
     ("plain", True, "cuda", (6, 3, 3, 7937), "general"),
-    ("plain", True, "cuda", (6, 3, 3, 9580), "plain"),
+    ("plain", True, "cuda", (6, 3, 3, 9580), "general"),
     ("plain", True, "cuda", (9, 3, 3, 80), "general"),        # n_state 9
     ("plain", True, "cuda", (6, 9, 3, 80), "general"),        # n_shock 9
     ("plain", False, "cuda", (6, 3, 3, 80), "plain"),         # Riccati
@@ -441,7 +446,7 @@ def test_domain_covers_the_models():
     ("plain", False, "cuda", (37, 7, 7, 156), "plain"),       # Riccati
     ("plain", True, "cuda", (65, 7, 7, 156), "plain"),        # n_state
     ("plain", True, "cuda", (37, 7, 17, 156), "plain"),       # n_obs
-    ("plain", True, "cuda", (37, 7, 7, 100_000), "plain"),    # observations
+    ("plain", True, "cuda", (37, 7, 7, 100_000), "general"),  # long data
     ("plain", True, "cpu", (37, 7, 7, 156), "plain"),
     ("plain", True, "cpu", (6, 3, 2, 80), "plain"),
     ("kernel", True, "cuda", (6, 3, 3, 80), "kernel"),
@@ -450,6 +455,37 @@ def test_domain_covers_the_models():
 ])
 def test_likelihood_route(backend, chand, device, shape, want):
     assert likelihood_route(backend, chand, device, *shape) == want
+
+
+def test_long_data_matches_plain(body):
+    """Data longer than the Kalman tile once held (its observations now
+    stay in global memory): sw_pi_fg's shape (44, 14, 14) over 400
+    quarters simulated at the mode, on the mode, 8 prior and 4 near-mode
+    draws, the host build of the kernel bodies against the plain route,
+    in SW's bands; the card takes the shape ("general")."""
+    from smc_tpu_torch.models import sw_pi_fg as fg
+    from smc_tpu_torch.models.dsge import bl_expectation_rows
+    from smc_tpu_torch.params import ParamSpace
+    from smc_tpu_torch.rng import TorchDraws
+    assert likelihood_route("plain", True, "cuda", 44, 14, 14, 400,
+                            expectations=True) == "general"
+    prior = ParamSpace(fg.sw_pi_fg_parameters()).sample_prior(
+        TorchDraws(6, "cpu"), 8, device="cpu")
+    mode = torch.as_tensor(fg.TRUE_PARAMS)[None]
+    near = mode * (1.0 + 1e-4 * torch.as_tensor(
+        np.random.default_rng(2).standard_normal((4, 43))))
+    th = torch.cat([mode, prior, near])
+    data = torch.as_tensor(fg.generate_sw_pi_fg_data(T=400))
+    A, B, C, D = fg._system(th)
+    d, Z, H = fg._measurement(th)
+    Q = fg._shock_cov(th)
+    X, M, ok = body.re(A, B, C, D)
+    ll = body.kalman(X, M, Q, bl_expectation_rows(
+        Z, X, fg.EXPECTATION_ROWS, ok), d, H, data, ok)
+    want = bl_dsge_loglike(A, B, C, D, Q, Z, d, H, data,
+                           expectation_rows=fg.EXPECTATION_ROWS)
+    assert bool(torch.isfinite(ll[[0, -4, -3, -2, -1]]).all())
+    assert_sw_loglh_close(ll.numpy(), want.numpy())
 
 
 def test_models_on_cpu_launch_no_kernel():

@@ -316,6 +316,21 @@ def test_host_build_holds_every_declared_entry(name):
     assert {key for key, _ in spec.kernels.values()} <= set(kernels.LAUNCHES)
 
 
+def test_typed_leaves_out_what_an_older_build_lacks():
+    """Another tree's build may predate entries declared since: typed
+    raises on a missing entry, and with missing_ok types the entries the
+    build has and leaves the rest out."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the host version of the kernel bodies")
+    path = _build.build_cpu_library("dsge_general")
+    with pytest.raises(AttributeError, match="smc_metropolis_cpu"):
+        kernels.typed(path, "metropolis", host=True)
+    lib = kernels.typed(path, "metropolis", host=True, missing_ok=True)
+    assert not hasattr(lib, "smc_metropolis_cpu")
+    assert kernels.typed(path, "dsge_general", host=True,
+                         missing_ok=True).smc_general_kalman_cpu.argtypes
+
+
 # --- the Jacobi eigh body ----------------------------------------------------
 
 EIGH_TOL = 1e-12

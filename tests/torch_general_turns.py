@@ -41,37 +41,53 @@ sys.path.insert(0, str(ROOT))
 from torch_turns import build_tree, turns  # noqa: E402
 
 
-def launchers(path: Path, inputs):
-    """(re(), kalman(), outputs): bare launches of the library's kernels on
-    `inputs` into outputs allocated once."""
-    import torch
+def library(path: Path, device):
+    """The dsge_general build at `path`, typed (the entries it has) and
+    readied on `device`."""
     from smc_tpu_torch.ops import kernels
-    A, B, C, D, Q, Z, d, H, data = inputs
-    lib = kernels.typed(path, "dsge_general")
-    kernels.prepare(lib, "dsge_general", A.device)
-    n_s, n_k, n_o, n = A.shape[0], D.shape[1], Z.shape[0], A.shape[-1]
-    X = torch.empty((n_s, n_s, n), dtype=A.dtype, device=A.device)
-    M = torch.empty((n_s, n_k, n), dtype=A.dtype, device=A.device)
-    ok = torch.empty(n, dtype=torch.bool, device=A.device)
-    out = torch.empty(n, dtype=A.dtype, device=A.device)
-    stream = lambda: torch.cuda.current_stream().cuda_stream
+    lib = kernels.typed(path, "dsge_general", missing_ok=True)
+    kernels.prepare(lib, "dsge_general", device)
+    return lib
 
-    def re():
-        rc = lib.smc_general_re(n_s, n_k, A.data_ptr(), B.data_ptr(),
-                                C.data_ptr(), D.data_ptr(), X.data_ptr(),
-                                M.data_ptr(), ok.data_ptr(), n, 16, 1e-8,
-                                stream())
-        if rc != 0:
-            raise RuntimeError(f"RE launch failed ({rc})")
+
+def kalman_launcher(lib, X, M, Q, Z, d, H, data, ok, out):
+    """kalman(): a bare launch of the library's Kalman kernel on these
+    tensors, into `out`."""
+    import torch
+    n_s, n_k, n_o, n = X.shape[0], M.shape[1], Z.shape[0], X.shape[-1]
 
     def kalman():
         rc = lib.smc_general_kalman(
             n_s, n_k, n_o, X.data_ptr(), M.data_ptr(), Q.data_ptr(),
             Z.data_ptr(), d.data_ptr(), H.data_ptr(), data.data_ptr(),
-            data.shape[1], ok.data_ptr(), n, 30, out.data_ptr(), stream())
+            data.shape[1], ok.data_ptr(), n, 30, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"Kalman launch failed ({rc})")
+    return kalman
 
+
+def launchers(path: Path, inputs):
+    """(re(), kalman(), outputs): bare launches of the library's kernels on
+    `inputs` into outputs allocated once."""
+    import torch
+    A, B, C, D, Q, Z, d, H, data = inputs
+    lib = library(path, A.device)
+    n_s, n_k, n = A.shape[0], D.shape[1], A.shape[-1]
+    X = torch.empty((n_s, n_s, n), dtype=A.dtype, device=A.device)
+    M = torch.empty((n_s, n_k, n), dtype=A.dtype, device=A.device)
+    ok = torch.empty(n, dtype=torch.bool, device=A.device)
+    out = torch.empty(n, dtype=A.dtype, device=A.device)
+
+    def re():
+        rc = lib.smc_general_re(n_s, n_k, A.data_ptr(), B.data_ptr(),
+                                C.data_ptr(), D.data_ptr(), X.data_ptr(),
+                                M.data_ptr(), ok.data_ptr(), n, 16, 1e-8,
+                                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"RE launch failed ({rc})")
+
+    kalman = kalman_launcher(lib, X, M, Q, Z, d, H, data, ok, out)
     re()
     kalman()
     torch.cuda.synchronize()
@@ -154,6 +170,15 @@ def sw_pi_fg_inputs(shape: str, dev):
     return A, B, C, D, fg._shock_cov(th), Z, d, H, data.contiguous()
 
 
+def build_other(csrc: Path) -> Path:
+    """The dsge_general library of another csrc/ tree, with this checkout's
+    flags for it."""
+    from smc_tpu_torch import _build
+    return build_tree(Path(csrc).resolve(), "dsge_general_kernels.cu",
+                      "libsmc_dsge_general_other",
+                      _build.CUDA_LIBRARIES["dsge_general"].flags)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, type=Path)
@@ -168,10 +193,7 @@ def main(argv=None) -> int:
     from smc_tpu_torch import _build
     dev = torch.device("cuda", 0)
     inputs = inputs_for(args.shape, dev)
-    flags = _build.CUDA_LIBRARIES["dsge_general"].flags
-    libs = {"other": build_tree(args.other.resolve(),
-                                "dsge_general_kernels.cu",
-                                "libsmc_dsge_general_other", flags),
+    libs = {"other": build_other(args.other),
             "this": _build.build_cuda_library("dsge_general")}
     print(f"# {chip_smoke.smi_line()}")
     for name, path in libs.items():
